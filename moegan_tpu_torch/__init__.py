@@ -1,0 +1,30 @@
+"""PyTorch + CUDA port of moegan_tpu, for an NVIDIA H100.
+
+`moegan_tpu/` (JAX, Pallas on a TPU) is the reference; this package is its
+counterpart, slice by slice. This slice holds the 64x64 serving path: the
+generator's eval forward (`models/generator.py`), the sampler and the HTTP
+serving stack (`infer/`), and the two hand-written CUDA kernels it runs
+(`ops/flash_attention.py`, `ops/fused_moe.py`, sources in `ops/csrc/`).
+
+Nothing here imports JAX or the JAX package. Entry points run on the card
+(`device="cuda"`) unless the caller asks for the CPU; on a CPU tensor each
+kernel wrapper takes its plain PyTorch version.
+"""
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device="cuda"):
+    """The torch.device for `device`; raises when CUDA is asked for and absent.
+
+    There is no silent fallback: a caller that wants the CPU says so.
+    """
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU"
+        )
+    return dev

@@ -1,0 +1,51 @@
+"""Per-pixel sparse MoE FFN with a Bayesian router (counterpart of
+moegan_tpu/core/moe.py), eval path through the fused kernel.
+
+`forward` is the JAX `_fused` glue (moe.py:184-226) at eval: mean router
+weights, nan_to_num on x and w, the per-image text logits
+(w @ tw) @ cw[h:] broadcast over tokens, inv_temp = 1/clip(temperature, 0.5,
+5), tokens and fw in the compute dtype, cw[:h] in fp32, hard routing. The
+kernel masks ragged token tiles itself, so the JAX glue's padding to 256 is
+not needed.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from moegan_tpu_torch.core import inits
+from moegan_tpu_torch.core.router import BayesianRouter
+from moegan_tpu_torch.ops.fused_moe import fused_moe_ffn
+
+
+class SparseMoE(nn.Module):
+    def __init__(self, dim: int, text_dim: int, num_experts: int = 4, router_hidden: int = 128,
+                 compute_dtype=torch.bfloat16, gen: torch.Generator | None = None):
+        super().__init__()
+        gen = inits.default_generator(gen)
+        d, e = dim, num_experts
+        self.num_experts = e
+        self.compute_dtype = compute_dtype
+        self.w1 = nn.Parameter(inits.torch_linear_kernel((e, d, 4 * d), gen))
+        self.b1 = nn.Parameter(inits.torch_linear_bias((e, 4 * d), gen, d))
+        self.w2 = nn.Parameter(inits.torch_linear_kernel((e, 4 * d, d), gen))
+        self.b2 = nn.Parameter(inits.torch_linear_bias((e, d), gen, 4 * d))
+        self.router = BayesianRouter(d, text_dim, e, router_hidden, gen)
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor):
+        """x [B, T, C] (normalised tokens); w [B, latent] -> (out [B, T, C], probs [B, T, E])."""
+        B, T, C = x.shape
+        E, h, cd = self.num_experts, self.router.hidden, self.compute_dtype
+        fw, tw, cw = self.router.mean_weights()
+        xt = torch.nan_to_num(x.float(), nan=0.0, posinf=1.0, neginf=-1.0)
+        wt = torch.nan_to_num(w.float(), nan=0.0, posinf=1.0, neginf=-1.0)
+        text_logits = (wt @ tw) @ cw[h:]  # [B, E]
+        tl = text_logits[:, None, :].expand(B, T, E).reshape(B * T, E).contiguous()
+        out, probs = fused_moe_ffn(
+            xt.reshape(B * T, C).to(cd), fw.to(cd).contiguous(), cw[:h].float().contiguous(),
+            tl, self.router.inv_temperature(),
+            self.w1.to(cd), self.b1.float(), self.w2.to(cd), self.b2.float(),
+            hard=True,
+        )
+        return out.reshape(B, T, C).to(x.dtype), probs.reshape(B, T, E)

@@ -1,0 +1,94 @@
+"""Builds the CUDA sources under `ops/csrc/` with nvcc and loads them with ctypes.
+
+Each `.cu` file is compiled, at its first use, into a shared library with a
+plain C interface: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+-Xcompiler -fPIC`. The libraries go to `moegan_tpu_torch/_build/` (listed in
+`.gitignore`), named by a hash of the source, so an edited source is built
+anew and an unchanged one is reused. All missing libraries are built at
+once, one nvcc process per source, started together.
+
+Nothing here runs at import time: the CPU tests import every module, and
+nvcc is needed only when a kernel is first launched on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SOURCES = ("flash_attention.cu", "fused_moe.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
+    return found
+
+
+def library_path(source: str) -> Path:
+    data = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(data).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def build_all() -> float:
+    """Compile every source whose library is missing, in parallel. Returns seconds."""
+    todo = [s for s in SOURCES if not library_path(s).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for src in todo:
+        out = library_path(src)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for src, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failures.append(f"{src}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return time.perf_counter() - t0
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library built from `csrc/<stem>.cu`, building it if needed."""
+    with _lock:
+        lib = _libs.get(stem)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(str(library_path(f"{stem}.cu")))
+            lib.moegan_cuda_error_string.restype = ctypes.c_char_p
+            lib.moegan_cuda_error_string.argtypes = [ctypes.c_int]
+            _libs[stem] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.moegan_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

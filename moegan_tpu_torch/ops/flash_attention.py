@@ -1,0 +1,102 @@
+"""Flash-attention forward: CUDA kernel wrapper and its plain PyTorch version.
+
+Counterpart of moegan_tpu/ops/flash_attention.py, forward only: the TPU
+kernel `_fwd_kernel` (launched by `_flash_forward`) becomes
+`csrc/flash_attention.cu`. The math is the TPU kernel's default: q
+pre-scaled by log2(e)/sqrt(D) in the input dtype (the scale itself rounded
+to that dtype), base-2 softmax, and the denominator summed from the same
+p, rounded to v's dtype, that multiplies v. The optional lse is the base-2
+logsumexp per row, [B, H, T] float32.
+
+Dispatch: a CPU tensor takes `flash_attention_reference`; a CUDA tensor
+launches the kernel or raises. There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from moegan_tpu_torch.ops import _build
+
+LOG2E = math.log2(math.e)
+
+
+def _q_scale(D: int, dtype: torch.dtype) -> float:
+    """log2(e)/sqrt(D), rounded to `dtype` as the TPU caller rounds it."""
+    return float(torch.tensor(LOG2E / math.sqrt(D), dtype=torch.float32).to(dtype).float())
+
+
+def flash_attention_reference(q, k, v, with_lse: bool = False):
+    """Plain version of the kernel: q, k, v [B, T, H, D] -> o [B, T, H, D] (and lse [B, H, T])."""
+    D = q.shape[-1]
+    qs = (q.float() * _q_scale(D, q.dtype)).to(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m).to(v.dtype).float()
+    l = p.sum(dim=-1, keepdim=True)  # [B, H, T, 1]
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l.permute(0, 2, 1, 3)
+    o = o.to(q.dtype)
+    if with_lse:
+        return o, (m + torch.log2(l)).squeeze(-1)
+    return o
+
+
+def _check_cuda_inputs(q, k, v):
+    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
+        raise ValueError(f"q, k, v must share one [B, T, H, D] shape; got {q.shape}, {k.shape}, {v.shape}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride on its last axis")
+        if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)):
+            raise ValueError(f"{name} must be 16-byte aligned with strides that are multiples of 8")
+    D = q.shape[-1]
+    if D % 16 or D > 64:
+        raise ValueError(f"the kernel takes head_dim a multiple of 16 up to 64, got {D}")
+    if q.shape[0] * q.shape[2] > 65535:
+        raise ValueError("B*H must be at most 65535 (grid y dimension)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
+    """Non-causal softmax(q k^T / sqrt(D)) v over [B, T, H, D] tensors.
+
+    Returns o (bf16 on CUDA), or (o, lse) with `with_lse`. q, k, v may be
+    strided views (e.g. last-axis slices of a fused QKV projection).
+    """
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, with_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
+    _check_cuda_inputs(q, k, v)
+    B, T, H, D = q.shape
+    o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if with_lse else None
+    if T == 0 or B * H == 0:
+        return (o, lse) if with_lse else o
+    strides = (ctypes.c_longlong * 9)(
+        *(t.stride(i) for t in (q, k, v) for i in (0, 1, 2))
+    )
+    lib = _build.load("flash_attention")
+    fn = lib.moegan_flash_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p,
+    ]
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        B, T, H, D, strides, _q_scale(D, q.dtype),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "flash_attention_fwd")
+    flash_attention.launches += 1
+    return (o, lse) if with_lse else o
+
+
+flash_attention.launches = 0

@@ -1,0 +1,55 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked `cuda` and skips where torch sees no CUDA device.
+The file imports neither JAX nor the JAX package, so it runs on the card's
+machine with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
+(`--noconftest` skips tests/conftest.py, which sets up JAX).
+"""
+
+import pytest
+import torch
+
+from moegan_tpu_torch.ops import flash_attention as tfa
+from moegan_tpu_torch.ops import fused_moe as tfm
+from torch_helpers import MOE_ORDER, moe_inputs, t  # tests/ is on sys.path under pytest
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,D", [(256, 8, 16), (1024, 2, 32), (200, 1, 32)])
+def test_flash_kernel_matches_plain_on_card(cuda_device, T, H, D):
+    # q|k|v as last-axis slices of one [B, T, 3HD] tensor (the strided path).
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+    y = torch.randn((2, T, 3 * H * D), generator=g, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (y[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D)) for i in range(3))
+    o, lse = tfa.flash_attention(q, k, v, with_lse=True)
+    want_o, want_lse = tfa.flash_attention_reference(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    # A few bf16 ulps of the largest |o| (std(o) ~ sqrt(e/T) for N(0, 1)
+    # inputs): the final rounding of o plus p rounded against different maxima.
+    atol = 4 * 2.0 ** -8 * want_o.float().abs().max().item()
+    torch.testing.assert_close(o.float(), want_o.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hard", [True, False])
+@pytest.mark.parametrize("C,T", [(512, 100), (128, 300), (32, 1000)])
+def test_moe_kernel_matches_plain_on_card(cuda_device, C, T, hard):
+    a = moe_inputs(seed=C, T=T, C=C, F=4 * C, h=128)
+    bf = {"x", "fw", "w1", "w2"}
+    args = [t(a[k]).to(cuda_device, torch.bfloat16 if k in bf else torch.float32)
+            if k != "inv_temp" else a[k] for k in MOE_ORDER]
+    out, p = tfm.fused_moe_ffn(*args, hard=hard)
+    want_out, want_p = tfm.moe_ffn_reference(*args, hard=hard)
+    out2, _ = tfm.fused_moe_ffn(*args, hard=hard)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)  # split partials are summed in a fixed order
+    torch.testing.assert_close(p, want_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=3e-2, rtol=2e-2)

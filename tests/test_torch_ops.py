@@ -1,0 +1,112 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each port wrapper takes its plain PyTorch version; the JAX
+kernels run in Pallas interpret mode, as tests/test_attention_ops.py and
+tests/test_fused_moe.py run them. The CUDA kernels are held against the plain
+versions on the card in tests/test_torch_cuda.py.
+"""
+
+from unittest import mock
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moegan_tpu.ops import flash_attention as jfa
+from moegan_tpu.ops import fused_moe as jfm
+from moegan_tpu_torch.ops import flash_attention as tfa
+from moegan_tpu_torch.ops import fused_moe as tfm
+from tests.torch_helpers import MOE_ORDER, moe_inputs, randn, t
+
+
+def _interpret(module):
+    """Force the module's pallas_call into interpret mode."""
+    real = module.pl.pallas_call
+
+    def fake(*a, **kw):
+        kw["interpret"] = True
+        return real(*a, **kw)
+
+    return mock.patch.object(module.pl, "pallas_call", fake)
+
+
+def _jax_flash(q, k, v):
+    """(o, lse [B, H, T]) from the TPU kernel: the no-lse call and the lse call."""
+    B, T, H, _ = q.shape
+    with _interpret(jfa), mock.patch.object(jfa, "_supported", lambda *a: True):
+        o = jfa.flash_attention(q, k, v, 128, 64)  # 4 KV tiles of 64
+        o2, lse = jfa._flash_forward(q, k, v, block_q=128, block_k=64,
+                                     with_lse=True, use_exp2=True)
+    np.testing.assert_array_equal(np.asarray(o), np.asarray(o2))
+    return np.asarray(o.astype(jnp.float32)), np.asarray(lse).reshape(B, H, T)
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_flash_plain_matches_pallas_kernel_fp32(D):
+    # float32: the two differ only in summation order (online vs full
+    # softmax), so 1e-5 on outputs of magnitude ~1.
+    q, k, v = (randn(D + i, 2, 256, 2, D) for i in range(3))
+    want_o, want_lse = _jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    before = tfa.flash_attention.launches
+    got_o, got_lse = tfa.flash_attention(t(q), t(k), t(v), with_lse=True)
+    np.testing.assert_allclose(got_o.numpy(), want_o, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=1e-5, atol=1e-5)
+    assert tfa.flash_attention.launches == before  # the CPU takes the plain version
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_flash_plain_matches_pallas_kernel_bf16(D):
+    # bf16: both pre-scale q in bf16 and round p to bf16, but p is taken
+    # against the running max (kernel) or the row max (plain), so p's
+    # rounding differs; outputs are |o| < ~1, where one bf16 ulp is 2^-8..2^-7.
+    q, k, v = (torch.from_numpy(randn(7 * D + i, 2, 256, 2, D)).to(torch.bfloat16) for i in range(3))
+    jq, jk, jv = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in (q, k, v))
+    want_o, want_lse = _jax_flash(jq, jk, jv)
+    got_o, got_lse = tfa.flash_attention(q, k, v, with_lse=True)
+    np.testing.assert_allclose(got_o.float().numpy(), want_o, atol=2e-2)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=2e-2)
+
+
+@pytest.mark.parametrize("hard", [True, False])
+@pytest.mark.parametrize("kernel", ["v1", "v2"])
+def test_moe_plain_matches_pallas_kernel(kernel, hard):
+    # float32 on both sides: probs to 1e-6, out to 1e-5 (summation order).
+    a = moe_inputs()
+    call = jfm._fused_moe_pallas if kernel == "v1" else jfm._fused_moe_pallas_v2
+    with _interpret(jfm):
+        want_out, want_p = call(*(a[k] for k in MOE_ORDER), hard, 32)
+    before = tfm.fused_moe_ffn.launches
+    got_out, got_p = tfm.fused_moe_ffn(
+        *(t(a[k]) if k != "inv_temp" else a[k] for k in MOE_ORDER), hard=hard)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out), rtol=1e-5, atol=1e-5)
+    if hard:
+        np.testing.assert_array_equal(got_p.numpy()[5], [0.5, 0.5, 0.0, 0.0])
+    assert tfm.fused_moe_ffn.launches == before
+
+
+def test_moe_plain_bf16_matches_pallas_v2_hard():
+    # bf16 tokens and weights (the serving dtypes). Under hard routing p is
+    # 0, 1/2 or 1, so the kernels' extra roundings are exact; what differs
+    # is the fp32 summation order of bf16 products: outputs ~0.3 in bf16, 1 ulp.
+    a = moe_inputs(seed=11)
+    bf = {"x", "fw", "w1", "w2"}
+    ja = {k: (jnp.asarray(v).astype(jnp.bfloat16) if k in bf else v) for k, v in a.items()}
+    ta = {k: (t(v).to(torch.bfloat16) if k in bf else (t(v) if k != "inv_temp" else v))
+          for k, v in a.items()}
+    with _interpret(jfm):
+        want_out, want_p = jfm._fused_moe_pallas_v2(*(ja[k] for k in MOE_ORDER), True, 32)
+    got_out, got_p = tfm.fused_moe_ffn(*(ta[k] for k in MOE_ORDER), hard=True)
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
+    np.testing.assert_allclose(got_out.float().numpy(), np.asarray(want_out.astype(jnp.float32)),
+                               atol=8e-3)
+
+
+def test_wrappers_reject_unknown_devices():
+    x = torch.zeros(2, 16, device="meta")
+    with pytest.raises(ValueError):
+        tfm.fused_moe_ffn(x, x, x, x, 1.0, x, x, x, x)
+    q = torch.zeros(1, 4, 1, 16, device="meta")
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q)
