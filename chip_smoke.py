@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's 64x64 serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's 64x64 serving path and training step on one NVIDIA GPU and check them.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and nvcc (it builds the port's kernels from `moegan_tpu_torch/ops/csrc`).
 It imports nothing of JAX or of the JAX package. Phases, each fatal on
 failure (non-zero exit, no result line):
 
-1. the card's name and power limit; build both CUDA kernels;
-2. each kernel against its plain PyTorch version on the card, in bf16, at
-   every shape the serving path gives it at batch 16, with times (CUDA
-   events) for the kernel, the plain version and, for attention,
+1. the card's name and power limit; build the four CUDA kernels (one nvcc
+   process per source, started together);
+2. each forward kernel against its plain PyTorch version on the card, in
+   bf16, at every shape the serving path gives it at batch 16, with times
+   (CUDA events) for the kernel, the plain version and, for attention,
    `F.scaled_dot_product_attention` as a yardstick;
-3. the served slice: the default 64x64 generator built from a seed, written
+3. each backward kernel against its plain version at every shape the
+   training step gives it at batch 64 (flash: dq, dk, dv, SDPA forward +
+   backward as the yardstick; MoE: all nine gradients of `FusedMoEFunction`
+   against the autograd of `moe_ffn_reference`), two calls bit-identical;
+4. the served slice: the default 64x64 generator built from a seed, written
    as `.npz` + `generator_config.json`, loaded by the port's
    `InferenceHandler`, served over HTTP on 127.0.0.1; one lone /generate
    (a batch-4 call) then 4 concurrent ones (one batch-16 call), every PNG
-   decoded and checked; the kernels' launch counts are read around this
-   phase alone;
-4. the whole generator on the card (kernels, bf16) against the same weights
-   and inputs on the CPU (plain versions, float32).
+   decoded and checked; the forward kernels' launch counts are read around
+   this phase alone;
+5. the whole generator on the card (kernels, bf16) against the same weights
+   and inputs on the CPU (plain versions, float32);
+6. the training step: the default `TrainConfig` (64x64, batch 64) through
+   `create_train_state` + `make_train_step`, 5 steps on a synthetic batch;
+   losses and parameters finite, parameters changed, ms/step (CUDA events,
+   median of steps 3-5) and images/s; each step's launches of the four
+   kernels are counted on their own and must be 6 / 3 / 10 / 5;
+7. one full-width step at batch 4 on the card (kernels, bf16) against the
+   same weights, batch and noise on the CPU (plain versions, float32):
+   losses and the cosine of each parameter group's gradient.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -44,7 +57,7 @@ SEED = 0
 N = 16  # the micro-batcher's full batch: 4 requests x 4 samples
 # Router means are N(0, 0.01) at init, so a random model's routing logits
 # differ by ~1e-3 and bf16 noise decides many tokens' top-1 expert. Scaling
-# combined_mu makes most decisions clear of that noise, so phase 4 compares
+# combined_mu makes most decisions clear of that noise, so phase 5 compares
 # the same routing on the card and the CPU.
 ROUTER_SCALE = 100.0
 # The HTTP clients' /poll interval (the bundled frontend polls every 3 s).
@@ -221,7 +234,177 @@ def moe_phase(dev, tfm):
     return rows
 
 
-# --- phase 3: the served slice ------------------------------------------------------------
+# --- phase 3: the backward kernels against their plain versions ------------------------
+
+B_TRAIN = 64  # the default TrainConfig's batch
+TRAIN_ATTN = ((16, 8, 16), (32, 2, 32), (64, 1, 32))  # (res, heads, head_dim)
+TRAIN_MOE = ((4, 512), (8, 256), (16, 128), (32, 64), (64, 32))  # (res, C)
+
+
+def flash_bwd_phase(dev, tfa):
+    """The backward at the three self-attention shapes of the 64x64 step at batch 64.
+
+    The kernel runs on the whole batch. Its plain version, the autograd of
+    `flash_attention_reference`, holds [B, H, T, T] fp32 scores and
+    probabilities and their gradients (about 4 GiB each at res 64 and batch
+    64), so at res 64 it checks the first 16 images, and is timed on the
+    whole batch 16 images at a time; each image's gradient depends on that
+    image alone.
+    """
+    import torch.nn.functional as F
+
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for res, H, D in TRAIN_ATTN:
+        T = res * res
+        y = torch.randn((B_TRAIN, T, 3 * H * D), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = (y[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D)) for i in range(3))
+        do = torch.randn((B_TRAIN, T, H, D), generator=g, device=dev).to(torch.bfloat16)
+        o, lse = tfa.flash_attention(q, k, v, with_lse=True)
+        # The forward's o and lse at the training batch, against the plain
+        # version in chunks of 16 images. o to the limit of flash_phase. Both
+        # sides sum p rounded to bf16 (each term within 2^-9 relative), the
+        # kernel against its running max, the plain version against the row
+        # max, so each l is within 2^-9 of the exact sum and the two lse
+        # within log2((1 + 2^-9) / (1 - 2^-9)) = 5.6e-3 of each other (plus
+        # fp32 sums over T terms). flash_phase's 1e-3 is what held over batch
+        # 16's rows; batch 64 at res 16 gave 1.08e-3.
+        lse_tol = 6e-3
+        o_err = o_max = lse_err = 0.0
+        for i in range(0, B_TRAIN, 16):
+            o_ref, lse_ref = tfa.flash_attention_reference(
+                q[i:i + 16], k[i:i + 16], v[i:i + 16], with_lse=True)
+            o_err = max(o_err, (o[i:i + 16].float() - o_ref.float()).abs().max().item())
+            o_max = max(o_max, o_ref.float().abs().max().item())
+            lse_err = max(lse_err, (lse[i:i + 16] - lse_ref).abs().max().item())
+            del o_ref, lse_ref
+        check(o_err <= 4 * 2.0 ** -8 * o_max,
+              f"flash fwd res {res} batch {B_TRAIN}: max |o - plain| {o_err} (max |o| {o_max})")
+        check(lse_err <= lse_tol,
+              f"flash fwd res {res} batch {B_TRAIN}: max |lse - plain| {lse_err} > {lse_tol}")
+        got = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+        again = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+        nb = 16 if res == 64 else B_TRAIN
+        want = tfa.flash_attention_bwd_reference(q[:nb], k[:nb], v[:nb], do[:nb])
+        torch.cuda.synchronize()
+        errs, refs = [], []
+        for name, a, b, c in zip("qkv", got, again, want):
+            check(torch.equal(a, b), f"flash bwd res {res}: two calls give different d{name}")
+            err = (a[:nb].float() - c.float()).abs().max().item()
+            ref = c.float().abs().max().item()
+            # The kernel rounds p and ds to bf16 before their products and
+            # its outputs to bf16; the plain version keeps them in fp32
+            # until the final rounding. Sums over T terms of such roundings
+            # (2^-9 relative each, of both signs) stay within a few bf16
+            # ulps of the largest gradient.
+            tol = 8 * 2.0 ** -8 * ref
+            check(err <= tol, f"flash bwd res {res}: max |d{name} - plain| {err} > {tol}")
+            errs.append(err)
+            refs.append(ref)
+        del want
+        ms = time_ms(lambda: tfa.flash_attention_bwd(q, k, v, o, lse, do), 10)
+
+        def plain_bwd():  # the whole batch, nb images at a time
+            for i in range(0, B_TRAIN, nb):
+                tfa.flash_attention_bwd_reference(q[i:i + nb], k[i:i + nb], v[i:i + nb],
+                                                  do[i:i + nb])
+
+        plain_ms = time_ms(plain_bwd, 3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
+
+        lib_ms = time_ms(sdpa_fwd_bwd, 10)
+        # S recomputed, then dP, dV, dQ, dK: five [T, T, D] products (the
+        # TPU kernel's cost estimate); q, k, v, o, do and lse read once,
+        # dq, dk, dv written once.
+        flops = 10.0 * B_TRAIN * H * T * T * D
+        nbytes = 8.0 * B_TRAIN * T * H * D * 2 + 4.0 * B_TRAIN * H * T
+        b_ms, b_by = bound_ms(flops, nbytes)
+        rows.append(dict(res=res, B=B_TRAIN, T=T, H=H, D=D, max_abs_err=max(errs),
+                         max_abs_ref=max(refs), errs_dq_dk_dv=errs, fwd_o_err=o_err,
+                         fwd_lse_err=lse_err, plain_batch=nb, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, flops=flops, bytes=nbytes,
+                         bound_ms=b_ms, bound_by=b_by))
+        print("flash_attention_bwd " + json.dumps(rows[-1]), flush=True)
+        del q, k, v, y, do, o, lse, got, again, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def moe_bwd_phase(dev, tfm):
+    """`FusedMoEFunction` (both kernels) against the autograd of `moe_ffn_reference`,
+    all nine gradients, at the five MoE blocks of the 64x64 step at batch 64."""
+    rows = []
+    names = ("x", "fw", "cw_f", "text_logits", "inv_temp", "w1", "b1", "w2", "b2")
+    for res, C in TRAIN_MOE:
+        T = B_TRAIN * res * res
+        args = moe_args(dev, C, T, seed=100 + res)
+        args[4] = args[4].clone()
+        g = torch.Generator(device=dev).manual_seed(SEED + res)
+        dout = (torch.randn((T, C), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        dprobs = torch.randn((T, 4), generator=g, device=dev) * 0.1
+
+        def grads(fn):
+            leaves = [a.detach().requires_grad_(True) for a in args]
+            out, probs = fn(*leaves)
+            return out.detach(), probs.detach(), torch.autograd.grad(
+                (out, probs), leaves, (dout, dprobs))
+
+        out, probs, got = grads(tfm.FusedMoEFunction.apply)
+        out2, probs2, again = grads(tfm.FusedMoEFunction.apply)
+        out_ref, probs_ref, want = grads(lambda *a: tfm.moe_ffn_reference(*a, hard=False))
+        torch.cuda.synchronize()
+        # The soft forward at the training T, to the limits of moe_compare.
+        check(torch.equal(out, out2) and torch.equal(probs, probs2),
+              f"moe fwd res {res} batch {B_TRAIN}: two calls differ")
+        out_err = (out.float() - out_ref.float()).abs().max().item()
+        out_max = out_ref.float().abs().max().item()
+        p_err = (probs - probs_ref).abs().max().item()
+        check(out_err <= 4 * 2.0 ** -8 * out_max,
+              f"moe fwd res {res} batch {B_TRAIN}: max |out - plain| {out_err} (max {out_max})")
+        check(p_err <= 1e-5, f"moe fwd res {res} batch {B_TRAIN}: max |probs - plain| {p_err}")
+        del out, out2, out_ref, probs, probs2, probs_ref
+        errs = {}
+        for name, a, b, c in zip(names, got, again, want):
+            check(torch.equal(a, b), f"moe bwd res {res}: two calls give different d{name}")
+            err = (a.float() - c.float()).abs().max().item()
+            ref = c.float().abs().max().item()
+            # Relative to the largest |grad|. The weight gradients sum up to
+            # 262k tokens and dx sums E*F = 512-8192 hidden units: the
+            # kernel rounds dz and p*h to bf16 (2^-9 relative) before those
+            # sums and the plain version does not, and the gradients of the
+            # bf16 weights are rounded to bf16 on both sides.
+            tol = 2e-2 * ref
+            check(err <= tol, f"moe bwd res {res}: max |d{name} - plain| {err} > {tol}")
+            errs[name] = [err, ref]
+        x, fw, cw, tl, it, w1, b1, w2, b2 = args
+        ms = time_ms(lambda: tfm.fused_moe_bwd(x, fw, cw, tl, it, w1, b1, w2, b2, dout), 5)
+        plain_ms = time_ms(lambda: tfm.moe_ffn_bwd_reference(x, fw, cw, tl, it, w1, b1, w2, b2,
+                                                             dout), 3)
+        E, F_ = 4, 4 * C
+        flops = 10.0 * T * C * F_ * E
+        # x and dout read (bf16), the weights read (bf16), dx and dp, the
+        # weight and bias gradients written (fp32).
+        nbytes = (2.0 * T * C * 2 + 2 * E * C * F_ * 2 + T * C * 4 + T * E * 4
+                  + 2 * E * C * F_ * 4 + (E * F_ + E * C) * 4)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        rows.append(dict(res=res, T=T, C=C, F=F_, E=E,
+                         max_abs_err=max(e for e, _ in errs.values()),
+                         max_rel_err=max(e / max(r, 1e-30) for e, r in errs.values()),
+                         errs=errs, fwd_out_err=out_err, fwd_probs_err=p_err, ms=ms,
+                         plain_ms=plain_ms, flops=flops, bytes=nbytes,
+                         bound_ms=b_ms, bound_by=b_by,
+                         plan=list(tfm.bwd_kernel_plan(T, C, F_, E, dev))))
+        print("fused_moe_bwd " + json.dumps(rows[-1]), flush=True)
+        del got, again, want, args, dout, dprobs
+        torch.cuda.empty_cache()
+    return rows
+
+
+# --- phase 4: the served slice ------------------------------------------------------------
 
 
 def build_model_dir(path):
@@ -320,7 +503,7 @@ def serve_phase(model_path, tfa, tfm):
     return launches, lat, dispatches
 
 
-# --- phase 4: the whole generator on the card against the CPU -----------------------------
+# --- phase 5: the whole generator on the card against the CPU -----------------------------
 
 
 def image_stats(raw_card, raw_cpu):
@@ -396,6 +579,173 @@ def generator_phase(cfg, state_dict, tfm):
     return stats
 
 
+# --- phases 6-7: the training step -------------------------------------------------------
+
+EXPECTED_STEP_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd": 3,
+                          "fused_moe_fwd": 10, "fused_moe_bwd": 5}
+
+
+def launch_counts(tfa, tfm):
+    return {"flash_attention_fwd": tfa.flash_attention.launches,
+            "flash_attention_bwd": tfa.flash_attention_bwd.launches,
+            "fused_moe_fwd": tfm.fused_moe_ffn.launches,
+            "fused_moe_bwd": tfm.fused_moe_bwd.launches}
+
+
+def reset_counts(tfa, tfm):
+    for fn in (tfa.flash_attention, tfa.flash_attention_bwd, tfm.fused_moe_ffn,
+               tfm.fused_moe_bwd):
+        fn.launches = 0
+
+
+def synthetic_batch(n, res, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"image": torch.tanh(torch.randn((n, res, res, 3), generator=g, device=device)),
+            "text": torch.randn((n, 512), generator=g, device=device)}
+
+
+def epoch0_schedule(cfg):
+    from moegan_tpu_torch.losses.gan import kl_annealing_factor, temperature_factor
+
+    return {"temperature_factor": temperature_factor(0),
+            "effective_kl_weight": cfg.loss.kl_weight
+            * kl_annealing_factor(0, cfg.loss.kl_annealing_epochs)}
+
+
+def train_phase(tfa, tfm, smi):
+    """5 steps of the default 64x64 TrainConfig at batch 64 through
+    `create_train_state` + `make_train_step`, random weights from the seed and
+    a synthetic batch. Every step's kernel launches are counted on their own."""
+    from moegan_tpu_torch.config import TrainConfig
+    from moegan_tpu_torch.train.state import create_train_state
+    from moegan_tpu_torch.train.step import make_train_step
+
+    cfg = TrainConfig()
+    state = create_train_state(cfg, device="cuda", seed=SEED)
+    step = make_train_step(cfg)
+    params = dict(state.generator.named_parameters(prefix="generator"))
+    params.update(state.discriminator.named_parameters(prefix="discriminator"))
+    before = {k: p.detach().clone() for k, p in params.items()}
+    batch = synthetic_batch(cfg.batch_size, 64, SEED + 3, "cuda")
+    sched = epoch0_schedule(cfg)
+    noise_gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, launches, all_metrics = [], [], []
+    total = dict.fromkeys(EXPECTED_STEP_LAUNCHES, 0)
+    for i in range(5):
+        reset_counts(tfa, tfm)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch, sched, generator=noise_gen)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        counts = launch_counts(tfa, tfm)
+        launches.append(counts)
+        for k, n in counts.items():
+            total[k] += n
+        all_metrics.append({k: v.tolist() for k, v in metrics.items()})
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, m in enumerate(all_metrics):
+        for k, v in m.items():
+            check(bool(np.isfinite(np.asarray(v)).all()), f"train step {i + 1}: {k} = {v}")
+        check(launches[i] == EXPECTED_STEP_LAUNCHES,
+              f"train step {i + 1}: launches {launches[i]}, want {EXPECTED_STEP_LAUNCHES}")
+    unchanged = []
+    for k, p in params.items():
+        check(bool(torch.isfinite(p).all()), f"train: {k} is not finite after 5 steps")
+        if torch.equal(p, before[k]):
+            unchanged.append(k)
+    # Only zero-initialised tensors that the loss does not reach may stay as
+    # they were: weight decay moves every other one (the cross-attention's
+    # q/k biases and norm2's bias feed nothing, with one text token).
+    for k in unchanged:
+        check(not bool(before[k].any()), f"train: {k} did not change in 5 steps")
+    for opt in (state.g_opt, state.d_opt):
+        check(opt.notfinite_count.item() == 0 and opt.count.item() == 5,
+              f"train: optimizer count {opt.count.item()}, notfinite {opt.notfinite_count.item()}")
+    med = float(np.median(step_ms[2:]))
+    row = {"batch": cfg.batch_size, "step_ms": step_ms, "median_ms_steps_3_5": med,
+           "images_per_s": cfg.batch_size / med * 1e3, "launches_per_step": launches[-1],
+           "peak_mem_gib": peak_gib, "unchanged_zero_tensors": unchanged,
+           "metrics_step_5": {k: v for k, v in all_metrics[-1].items()
+                              if not isinstance(v, list)}, "card": smi}
+    print(f"train 64x64 batch {cfg.batch_size}: {med:.2f} ms/step (median of steps 3-5), "
+          f"{row['images_per_s']:.1f} images/s, on {smi}", flush=True)
+    print("train " + json.dumps(row), flush=True)
+    return total, row
+
+
+def cosine(a, b):
+    """Cosine of two vectors; 1 when both are zero (a tensor the loss does not reach)."""
+    a, b = a.double(), b.double()
+    if not (a.any() or b.any()):
+        return 1.0
+    return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def train_vs_cpu_phase():
+    """One full-width step at batch 4 on the card (kernels, bf16) and on the CPU
+    (plain versions, float32) from the same weights, batch and noise. Adam's
+    first moment after one step is (1 - b1) times the clipped gradient, so its
+    cosine between the two is the gradients' cosine."""
+    from moegan_tpu_torch.config import TrainConfig
+    from moegan_tpu_torch.train.state import create_train_state
+    from moegan_tpu_torch.train.step import draw_noise, make_train_step
+
+    cfg = TrainConfig(batch_size=4)
+    cpu_cfg = cfg.replace(generator=cfg.generator.replace(compute_dtype="float32"),
+                          discriminator=cfg.discriminator.replace(compute_dtype="float32"))
+    torch.set_num_threads(os.cpu_count() or 1)
+    batch = synthetic_batch(4, 64, SEED + 5, "cpu")
+    sched = epoch0_schedule(cfg)
+    results = {}
+    for name, c, dev in (("card", cfg, "cuda"), ("cpu", cpu_cfg, "cpu")):
+        state = create_train_state(c, device=dev, seed=SEED + 6)
+        noise = draw_noise(state.generator, 4, torch.Generator().manual_seed(SEED + 7),
+                           device="cpu")
+        t0 = time.perf_counter()
+        state, metrics = make_train_step(c)(state, batch, sched, noise=noise)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        results[name] = (state, {k: v.cpu() for k, v in metrics.items()},
+                         time.perf_counter() - t0)
+    (card, m_card, _), (cpu, m_cpu, cpu_s) = results["card"], results["cpu"]
+    losses = {k: [float(m_card[k]), float(m_cpu[k])] for k in
+              ("d_loss", "r1_loss", "d_total", "g_loss", "g_total", "kl_loss", "balance_loss")}
+    groups = {}
+    for net, opt_card, opt_cpu, module in (
+            ("generator", card.g_opt, cpu.g_opt, cpu.generator),
+            ("discriminator", card.d_opt, cpu.d_opt, cpu.discriminator)):
+        a, b = opt_card.mu.cpu(), opt_cpu.mu
+        groups[net] = cosine(a, b)
+        off = 0
+        spans = {}
+        for n, p in module.named_parameters():
+            top = n.split(".")[0]
+            lo, _ = spans.get(top, (off, off))
+            spans[top] = (lo, off + p.numel())
+            off += p.numel()
+        for top, (lo, hi) in spans.items():
+            groups[f"{net}.{top}"] = cosine(a[lo:hi], b[lo:hi])
+    print("train_vs_cpu " + json.dumps({"losses_card_cpu": losses, "grad_cosine": groups,
+                                        "cpu_step_s": cpu_s}), flush=True)
+    # bf16 activations and weights against float32, through two generator
+    # passes, four discriminator passes and a double backward: each bf16
+    # rounding is 2^-9 relative, a few dozen in sequence.
+    for k, (a, b) in losses.items():
+        lim = 0.05 * abs(b) + (1e-4 if k == "balance_loss" else 1e-6)
+        check(abs(a - b) <= lim, f"train vs cpu: {k} card {a} cpu {b} (limit {lim})")
+    # The whole generator's gradient passes through more bf16 roundings (two
+    # generator passes and D) than the shallow discriminator's.
+    for k, c in groups.items():
+        floor = {"generator": 0.95, "discriminator": 0.99}.get(k, 0.9)
+        check(c >= floor, f"train vs cpu: gradient cosine of {k} {c} < {floor}")
+    return losses, groups
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU")
@@ -413,37 +763,53 @@ def main() -> None:
     build_s = _build.build_all()
     print(f"nvcc build: {build_s:.1f} s for {list(_build.SOURCES)}", flush=True)
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
+    torch.backends.cudnn.allow_tf32 = False
     flash_rows = flash_phase(dev, tfa)
     moe_rows = moe_phase(dev, tfm)
+    flash_bwd_rows = flash_bwd_phase(dev, tfa)
+    moe_bwd_rows = moe_bwd_phase(dev, tfm)
 
     model_dir = tempfile.mkdtemp(prefix="moegan_smoke_model_")
     try:
         cfg, state_dict = build_model_dir(model_dir)
-        launches, _, _ = serve_phase(model_dir, tfa, tfm)
+        serve_phase(model_dir, tfa, tfm)
         generator_phase(cfg, state_dict, tfm)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches, _ = train_phase(tfa, tfm, smi)
+    train_vs_cpu_phase()
 
     def total(rows, key):
         return sum(r[key] for r in rows)
 
     kernels = []
-    for name, rows, src, replaces, lib in (
+    for name, rows, src, replaces, lib, shapes in (
         ("flash_attention_fwd", flash_rows, "moegan_tpu_torch/ops/csrc/flash_attention.cu",
-         "moegan_tpu/ops/flash_attention.py:226", True),
+         "moegan_tpu/ops/flash_attention.py:226", True, "serving, batch 16"),
         ("fused_moe_fwd", moe_rows, "moegan_tpu_torch/ops/csrc/fused_moe.cu",
-         "moegan_tpu/ops/fused_moe.py:97; moegan_tpu/ops/fused_moe.py:722", False),
+         "moegan_tpu/ops/fused_moe.py:97; moegan_tpu/ops/fused_moe.py:722", False,
+         "serving, batch 16"),
+        ("flash_attention_bwd", flash_bwd_rows,
+         "moegan_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+         "moegan_tpu/ops/flash_attention.py:521", True, "training, batch 64"),
+        ("fused_moe_bwd", moe_bwd_rows, "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
+         "moegan_tpu/ops/fused_moe.py:774", False, "training, batch 64"),
     ):
         ops_ms = sum(r["flops"] for r in rows) / PEAK_BF16_FLOPS * 1e3
         bytes_ms = sum(r["bytes"] for r in rows) / PEAK_BYTES * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            # launches: the 5 training steps (every kernel runs on that path)
             "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
-            # times and bounds: the sum over the shapes of one batch-16 generator call
+            # times and bounds: the sum over the shapes of one generator call
+            # (forwards) or one training step's backward (backwards)
             "ms": total(rows, "ms"), "plain_ms": total(rows, "plain_ms"),
             "bound_ms": total(rows, "bound_ms"),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": total(rows, "library_ms") if lib else None,
+            "shapes": shapes,
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,15 +1,16 @@
-"""Generator configuration (counterpart of moegan_tpu/config.py:54-121).
+"""Configuration (counterpart of moegan_tpu/config.py).
 
-Only `GeneratorConfig` is ported: the serving path needs nothing else. The
-TPU-only fields `use_pallas` and `remat_blocks` are dropped; `from_dict`
-skips them (and any other unknown key) in a JAX-written
-`generator_config.json`.
+`GeneratorConfig`, `DiscriminatorConfig`, `LossConfig` and `TrainConfig`
+keep the JAX package's fields and defaults. The TPU-only fields
+(`use_pallas`, `remat_blocks`) and `MeshConfig` are left out; `from_dict`
+skips them, and any other unknown key, in a JAX-written JSON.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
 
@@ -18,8 +19,28 @@ TEXT_EMBEDDING_DIM = 512
 NUM_EXPERTS = 4
 
 
+class _JsonMixin:
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]):
+        return _from_dict(cls, d)
+
+
+def _from_dict(cls, d: Mapping[str, Any]):
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in d.items() if k in names})
+
+
 @dataclass(frozen=True)
-class GeneratorConfig:
+class GeneratorConfig(_JsonMixin):
     """Aurora generator architecture; defaults are the 64x64 flagship."""
 
     latent_dim: int = LATENT_DIM
@@ -39,20 +60,10 @@ class GeneratorConfig:
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "GeneratorConfig":
-        names = {f.name for f in dataclasses.fields(cls)}
-        kwargs = {k: v for k, v in d.items() if k in names}
-        if isinstance(kwargs.get("channels"), Mapping):
-            kwargs["channels"] = {int(k): int(v) for k, v in kwargs["channels"].items()}
-        return cls(**kwargs)
-
-    def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
-
-    def to_json(self) -> str:
-        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
-
-    def replace(self, **kw) -> "GeneratorConfig":
-        return dataclasses.replace(self, **kw)
+        d = dict(d)
+        if isinstance(d.get("channels"), Mapping):
+            d["channels"] = {int(k): int(v) for k, v in d["channels"].items()}
+        return _from_dict(cls, d)
 
     def resolutions(self) -> Sequence[int]:
         res, r = [], 4
@@ -69,3 +80,75 @@ class GeneratorConfig:
         while h > 1 and dim // h < 32:
             h //= 2
         return max(h, 1)
+
+
+@dataclass(frozen=True)
+class DiscriminatorConfig(_JsonMixin):
+    """Text-conditional discriminator (moegan_tpu/config.py:124-151)."""
+
+    text_embedding_dim: int = TEXT_EMBEDDING_DIM
+    max_resolution: int = 64
+    base_channels: int = 32
+    max_channels: int = 256
+    text_features: int = 128
+    compute_dtype: str = "bfloat16"
+
+    def channel_plan(self) -> Sequence[int]:
+        """Output channels of each stride-2 conv from max_resolution down to 4."""
+        if self.max_resolution == 16:
+            return (128, 256)
+        n_down = int(math.log2(self.max_resolution // 4))
+        ch, plan = self.base_channels, []
+        for _ in range(n_down):
+            ch = min(ch * 2, self.max_channels)
+            plan.append(ch)
+        return tuple(plan)
+
+
+@dataclass(frozen=True)
+class LossConfig(_JsonMixin):
+    """Loss weights (moegan_tpu/config.py:154-192). The port's training step
+    runs the defaults (nonsaturating loss, CV balance of the last block) and
+    refuses the others; it has no CLIP loss, so the CLIP fields are left out."""
+
+    gan_loss: str = "nonsaturating"
+    r1_gamma: float = 10.0
+    kl_weight: float = 1e-3
+    kl_annealing_epochs: int = 5
+    balance_weight: float = 0.01
+    kl_clamp: float = 50.0
+    balance_all_blocks: bool = False
+    balance_kind: str = "cv"
+
+
+@dataclass(frozen=True)
+class TrainConfig(_JsonMixin):
+    """Training hyperparameters (moegan_tpu/config.py:204-249), 64x64 at batch 64.
+    `truncation_psi` and `log_interval` (the JAX training loop's) are left out."""
+
+    num_epochs: int = 50
+    batch_size: int = 64
+    lr: float = 2e-4
+    beta1: float = 0.5
+    beta2: float = 0.999
+    weight_decay: float = 0.01
+    lr_warmup_epochs: int = 3
+    lr_min_fraction: float = 0.05
+    grad_clip_g: float = 0.8
+    grad_clip_d: float = 0.7
+    gradient_accumulation_steps: int = 1
+    seed: int = 0
+    steps_per_epoch: int | None = None
+    shared_fake: bool = False
+    loss: LossConfig = field(default_factory=LossConfig)
+    generator: GeneratorConfig = field(default_factory=GeneratorConfig)
+    discriminator: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "TrainConfig":
+        d = dict(d)
+        for key, sub in (("loss", LossConfig), ("generator", GeneratorConfig),
+                         ("discriminator", DiscriminatorConfig)):
+            if isinstance(d.get(key), Mapping):
+                d[key] = sub.from_dict(d[key])
+        return _from_dict(cls, d)

@@ -7,7 +7,9 @@ The port names its modules after the flax scopes, so a flax path
 - conv kernels, HWIO -> OIHW (flax `nn.Conv` `kernel` and the modulated
   conv's `weight`); `kernel` becomes `weight`;
 - dense kernels [in, out] -> `nn.Linear` weights [out, in];
-- LayerNorm `scale` -> `weight`.
+- LayerNorm `scale` -> `weight`;
+- the discriminator's weight-normalised conv kernels `v`, HWIO -> OIHW
+  (its dense `v` stays [in, out]).
 
 Everything else keeps its name, shape and meaning: the stacked MoE
 w1/b1/w2/b2 [E, ...], the router mu/rho/temperature, the attention
@@ -41,7 +43,7 @@ def flatten_params(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
 
 
 def jax_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX-layout generator params -> the port's `state_dict`."""
+    """JAX-layout generator or discriminator params -> the port's `state_dict`."""
     out = {}
     for key, a in flatten_params(params).items():
         *scope, leaf = key.split("/")
@@ -49,7 +51,7 @@ def jax_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             leaf, a = "weight", a.transpose(3, 2, 0, 1)
         elif leaf == "kernel" and a.ndim == 2:
             leaf, a = "weight", a.T
-        elif leaf == "weight" and a.ndim == 4:
+        elif leaf in ("weight", "v") and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         elif leaf == "scale":
             leaf = "weight"
@@ -70,6 +72,8 @@ def torch_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray
         elif leaf == "weight" and a.ndim == 4:
             if scope and scope[-1].startswith("offset_conv"):
                 leaf = "kernel"
+            a = a.transpose(2, 3, 1, 0)
+        elif leaf == "v" and a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)
         out["/".join([*scope, leaf])] = np.ascontiguousarray(a)
     return out

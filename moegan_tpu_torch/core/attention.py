@@ -6,9 +6,11 @@ projection + cross-attention against the length-1 text sequence ->
 LayerNorm + SparseMoE -> proj_out. Residuals bypass the norms.
 
 Self-attention uses one fused [D, 3D] QKV product sliced q|k|v on the last
-axis. For T >= 256 it runs through `ops.flash_attention` (the CUDA kernel on
-the card); below that, plain attention with fp32 logits, probs cast to the
-compute dtype and PV accumulated in fp32. Cross-attention over one text
+axis. For T >= 256 it runs through the flash-attention kernels on the card:
+`FlashAttentionFunction` (forward with lse, then the backward kernel) when
+grad is enabled, `flash_attention` (forward only, no lse) when not. Below
+that, plain attention with fp32 logits, probs cast to the compute dtype and
+PV accumulated in fp32. Cross-attention over one text
 token is exactly the value projection broadcast over every query
 (`MOEGAN_CROSS_T1`, on by default in the JAX package), so norm2, wq/wk and
 bq/bk are kept as parameters for checkpoint parity but not computed.
@@ -24,7 +26,7 @@ from torch import nn
 from moegan_tpu_torch.core import inits
 from moegan_tpu_torch.core.modconv import ModulatedConv
 from moegan_tpu_torch.core.moe import SparseMoE
-from moegan_tpu_torch.ops.flash_attention import flash_attention
+from moegan_tpu_torch.ops.flash_attention import FlashAttentionFunction, flash_attention
 from moegan_tpu_torch.ops.layernorm import LayerNorm
 
 FLASH_MIN_T = 256
@@ -64,7 +66,9 @@ class MultiHeadAttention(nn.Module):
         qh = y[..., :D].unflatten(-1, (H, hd))
         kh = y[..., D:2 * D].unflatten(-1, (H, hd))
         vh = y[..., 2 * D:].unflatten(-1, (H, hd))
-        if T >= FLASH_MIN_T:
+        if T >= FLASH_MIN_T and torch.is_grad_enabled():
+            out = FlashAttentionFunction.apply(qh, kh, vh)
+        elif T >= FLASH_MIN_T:
             out = flash_attention(qh, kh, vh)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * (1.0 / math.sqrt(hd))
@@ -94,8 +98,13 @@ class AttentionBlock(nn.Module):
         self.moe = SparseMoE(dim, latent_dim, num_experts, router_hidden, cd, gen)
         self.proj_out = ModulatedConv(dim, dim, 1, latent_dim, compute_dtype=cd, gen=gen)
 
-    def forward(self, x: torch.Tensor, w: torch.Tensor, text_seq: torch.Tensor):
-        """x [B, H, W, C]; w [B, latent]; text_seq [B, 1, text_dim] -> (x_out, probs [B, T, E])."""
+    def forward(self, x: torch.Tensor, w: torch.Tensor, text_seq: torch.Tensor,
+                training: bool = False, annealing_factor: float | torch.Tensor = 1.0,
+                eps=None):
+        """x [B, H, W, C]; w [B, latent]; text_seq [B, 1, text_dim] -> (x_out, kl, probs [B, T, E]).
+
+        `training`, `annealing_factor` and the router noise go to the MoE.
+        """
         B, Hh, Ww, C = x.shape
         tokens = self.proj_in(x, w).reshape(B, Hh * Ww, C)
         tokens = tokens + self.self_attn.self_attention(self.norm1(tokens))
@@ -103,6 +112,6 @@ class AttentionBlock(nn.Module):
         # norm2 feeds only the cross-attention query, which a length-1
         # key sequence ignores; the JAX package's compiler drops it too.
         tokens = tokens + self.cross_attn.cross_single(tokens, tproj)
-        moe_out, probs = self.moe(self.norm3(tokens), w)
+        moe_out, kl, probs = self.moe(self.norm3(tokens), w, training, annealing_factor, eps)
         tokens = tokens + moe_out
-        return self.proj_out(tokens.reshape(B, Hh, Ww, C), w), probs
+        return self.proj_out(tokens.reshape(B, Hh, Ww, C), w), kl, probs

@@ -53,8 +53,11 @@ class GenerativeBlock(nn.Module):
             out_channels, text_dim, latent_dim, heads, num_experts, router_hidden,
             compute_dtype, gen)
 
-    def forward(self, x: torch.Tensor, w: torch.Tensor, text_seq: torch.Tensor):
-        """Returns (x [B, H, W, C], routing probs [B, T, E])."""
+    def forward(self, x: torch.Tensor, w: torch.Tensor, text_seq: torch.Tensor,
+                training: bool = False, annealing_factor: float | torch.Tensor = 1.0,
+                eps=None):
+        """Returns (x [B, H, W, C], router KL, routing probs [B, T, E])."""
         if self.upsample:
             x = upsample2x_bilinear(x)
-        return self.attn_block(self.conv_block(x, w), w, text_seq)
+        return self.attn_block(self.conv_block(x, w), w, text_seq, training, annealing_factor,
+                               eps)

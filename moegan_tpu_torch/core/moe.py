@@ -1,12 +1,15 @@
 """Per-pixel sparse MoE FFN with a Bayesian router (counterpart of
-moegan_tpu/core/moe.py), eval path through the fused kernel.
+moegan_tpu/core/moe.py) through the fused kernels.
 
-`forward` is the JAX `_fused` glue (moe.py:184-226) at eval: mean router
-weights, nan_to_num on x and w, the per-image text logits
-(w @ tw) @ cw[h:] broadcast over tokens, inv_temp = 1/clip(temperature, 0.5,
-5), tokens and fw in the compute dtype, cw[:h] in fp32, hard routing. The
-kernel masks ragged token tiles itself, so the JAX glue's padding to 256 is
-not needed.
+`forward` is the JAX `_fused` glue (moe.py:184-226): router weights (the
+posterior means at eval, a reparameterised sample in training), nan_to_num
+on x and w, the per-image text logits (w @ tw) @ cw[h:] broadcast over
+tokens, inv_temp = 1/clip(temperature * annealing, 0.5, 5), tokens and fw
+in the compute dtype, cw[:h] in fp32. Eval routes hard (top-1) through
+`fused_moe_ffn`; training routes soft through `FusedMoEFunction`, whose
+backward is the MoE backward kernel, and adds the router's KL. The kernels
+mask ragged token tiles themselves, so the JAX glue's padding to 256 is not
+needed.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from torch import nn
 
 from moegan_tpu_torch.core import inits
 from moegan_tpu_torch.core.router import BayesianRouter
-from moegan_tpu_torch.ops.fused_moe import fused_moe_ffn
+from moegan_tpu_torch.ops.fused_moe import FusedMoEFunction, fused_moe_ffn
 
 
 class SparseMoE(nn.Module):
@@ -33,19 +36,30 @@ class SparseMoE(nn.Module):
         self.b2 = nn.Parameter(inits.torch_linear_bias((e, d), gen, 4 * d))
         self.router = BayesianRouter(d, text_dim, e, router_hidden, gen)
 
-    def forward(self, x: torch.Tensor, w: torch.Tensor):
-        """x [B, T, C] (normalised tokens); w [B, latent] -> (out [B, T, C], probs [B, T, E])."""
+    def forward(self, x: torch.Tensor, w: torch.Tensor, training: bool = False,
+                annealing_factor: float | torch.Tensor = 1.0, eps=None):
+        """x [B, T, C] (normalised tokens); w [B, latent].
+
+        Returns (out [B, T, C], kl, probs [B, T, E]); kl is 0 at eval. In
+        training the router noise is `eps` (see `BayesianRouter.sample_weights`),
+        which a training call must pass.
+        """
+        if training and eps is None:
+            raise ValueError("a training forward needs the router noise eps")
         B, T, C = x.shape
         E, h, cd = self.num_experts, self.router.hidden, self.compute_dtype
-        fw, tw, cw = self.router.mean_weights()
+        fw, tw, cw = self.router.sample_weights(training, eps)
         xt = torch.nan_to_num(x.float(), nan=0.0, posinf=1.0, neginf=-1.0)
         wt = torch.nan_to_num(w.float(), nan=0.0, posinf=1.0, neginf=-1.0)
         text_logits = (wt @ tw) @ cw[h:]  # [B, E]
         tl = text_logits[:, None, :].expand(B, T, E).reshape(B * T, E).contiguous()
-        out, probs = fused_moe_ffn(
-            xt.reshape(B * T, C).to(cd), fw.to(cd).contiguous(), cw[:h].float().contiguous(),
-            tl, self.router.inv_temperature(),
-            self.w1.to(cd), self.b1.float(), self.w2.to(cd), self.b2.float(),
-            hard=True,
-        )
-        return out.reshape(B, T, C).to(x.dtype), probs.reshape(B, T, E)
+        args = (xt.reshape(B * T, C).to(cd), fw.to(cd).contiguous(), cw[:h].float().contiguous(),
+                tl, self.router.inv_temperature(annealing_factor),
+                self.w1.to(cd), self.b1.float(), self.w2.to(cd), self.b2.float())
+        if training:
+            out, probs = FusedMoEFunction.apply(*args)
+            kl = self.router.kl_divergence()
+        else:
+            out, probs = fused_moe_ffn(*args, hard=True)
+            kl = torch.zeros((), device=x.device)
+        return out.reshape(B, T, C).to(x.dtype), kl, probs.reshape(B, T, E)

@@ -1,4 +1,4 @@
-"""Aurora generator, eval forward (counterpart of moegan_tpu/models/generator.py).
+"""Aurora generator (counterpart of moegan_tpu/models/generator.py).
 
 text_proj MLP (Linear -> LayerNorm(1e-5, fp32) -> LeakyReLU(0.2) -> Linear)
 gives the length-1 text sequence; a 4-layer mapping network maps
@@ -8,8 +8,10 @@ generative blocks; RGB taps (1x1 modulated conv, fp32 out) at every
 resolution >= rgb_min_resolution. Parameter names follow the flax tree, so
 `convert.py` maps one onto the other name for name.
 
-Serving is the only mode of this slice: mean router weights, hard routing,
-no KL. Training waits for the next slice.
+Eval (serving) uses the mean router weights and hard routing, and its KL is
+0. Training (`training=True`) samples every router's weights, routes soft,
+anneals the router temperature by `annealing_factor`, and returns the sum of
+the blocks' router KLs (generator.py:44-152).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from moegan_tpu_torch.ops.layernorm import LayerNorm
 class GeneratorOutput(NamedTuple):
     image: torch.Tensor  # [B, R, R, 3] fp32 at max_resolution
     intermediates: dict  # {resolution: [B, r, r, 3]} RGB taps, final included
+    kl: torch.Tensor  # sum of the blocks' router KLs (0 at eval)
     routing: tuple  # per-block routing probs [B, T_r, E]
 
 
@@ -80,9 +83,17 @@ class AuroraGenerator(nn.Module):
         return v
 
     def forward(self, z: torch.Tensor, text_embeddings: torch.Tensor,
-                truncation_psi: float | torch.Tensor = 1.0) -> GeneratorOutput:
-        """z [B, latent]; text_embeddings [B or 1, text_dim]; psi a float or a per-sample [B] tensor."""
+                truncation_psi: float | torch.Tensor = 1.0, training: bool = False,
+                annealing_factor: float | torch.Tensor = 1.0,
+                router_eps=None) -> GeneratorOutput:
+        """z [B, latent]; text_embeddings [B or 1, text_dim]; psi a float or a per-sample [B] tensor.
+
+        In training each block's router noise is `router_eps[resolution]`
+        (see `BayesianRouter.sample_weights`; `train.step.draw_noise` draws it).
+        """
         cfg = self.config
+        if training and router_eps is None:
+            raise ValueError("a training forward needs router_eps")
         B = z.shape[0]
         te = text_embeddings.float()
         if te.shape[0] == 1 and B != 1:
@@ -92,17 +103,21 @@ class AuroraGenerator(nn.Module):
         w = self.mapping(torch.cat([z.float(), te], dim=-1))
         if torch.is_tensor(truncation_psi) or truncation_psi < 1.0:
             zeros = torch.zeros((1, cfg.latent_dim + cfg.text_embedding_dim), device=w.device)
-            mean_latent = self.mapping(zeros)
+            mean_latent = self.mapping(zeros).detach()
             psi = torch.as_tensor(truncation_psi, dtype=torch.float32, device=w.device)
             if psi.dim() == 1:
                 psi = psi[:, None]
             w = mean_latent + psi * (w - mean_latent)
 
         x = self.constant.expand(B, 4, 4, cfg.channels[4]).to(self.compute_dtype)
-        routings, rgbs = [], {}
+        kls, routings, rgbs = [], [], {}
         for r in cfg.resolutions():
-            x, probs = getattr(self, f"gen_block_{r}")(x, w, text_seq)
+            eps = router_eps[r] if training else None
+            x, kl, probs = getattr(self, f"gen_block_{r}")(
+                x, w, text_seq, training, annealing_factor, eps)
+            kls.append(kl)
             routings.append(probs)
             if r >= cfg.rgb_min_resolution:
                 rgbs[r] = getattr(self, f"to_rgb_{r}")(x, w).float()
-        return GeneratorOutput(rgbs[cfg.max_resolution], rgbs, tuple(routings))
+        return GeneratorOutput(rgbs[cfg.max_resolution], rgbs, torch.stack(kls).sum(),
+                               tuple(routings))

@@ -1,0 +1,573 @@
+// Fused Bayesian-MoE backward for Hopper (sm_90a): the FFN and combine part
+// of the gradient under soft routing.
+//
+// Replaces the TPU kernel moegan_tpu/ops/fused_moe.py::_fused_moe_bwd_kernel_v2
+// (launched by _fused_moe_bwd_v2). It also computes what the v1 kernel
+// _bwd_fused_kernel computes: the same gradient. Given the forward's inputs
+// and the output cotangent dout [T, C], it recomputes the soft routing
+// probabilities p, z = x W1_e + b1_e and h = bf16(gelu_erf(z)), and returns
+//
+//   g       = dout W2_e^T                       [T, F] per expert
+//   dp[t,e] = sum_f g*h + dout . b2_e           (the combine's cotangent)
+//   dz      = g * p_e * gelu'(z)
+//   dx_ffn  = sum_e dz W1_e^T                   (fp32)
+//   dW1_e   = x^T dz,  db1_e = sum_t dz
+//   dW2_e   = bf16(p_e h)^T dout,  db2_e = sum_t p_e dout
+//
+// The router chain's own backward (dx through the router, dfw, dcw, dtl,
+// dinv_temp) is left to the caller, as the TPU path leaves it to XLA.
+//
+// The weight gradients reduce over all T tokens and dx / dp over all E*F
+// hidden units, so one grid cannot own both. Four launches, no atomics, and
+// every fp32 sum in a fixed order (two calls give the same bits):
+//
+//   1. moe_bwd_token_kernel, block (token tile i, split s): the x and dout
+//      tiles stay in shared memory while the block walks its share of the
+//      (expert, F-chunk) loop, staging one [C, FC] slice of W1 and one
+//      [FC, C] slice of W2 at a time with cp.async. Per chunk it computes z
+//      and g on the tensor cores (WMMA, bf16 in, fp32 accumulate), p*h, dz
+//      and dp, adds dz W1^T into a [BT, C] fp32 accumulator, writes bf16 dz
+//      and bf16 p*h to a [T, E*F] scratch each, and writes the tile's fp32
+//      column sums of dz (for db1) and, in split 0, of p*dout (for db2).
+//      dx and dp are written as per-split partials.
+//   2. moe_bwd_finish_kernel: dx = sum of the split partials; dp = sum of
+//      the partials + dout . b2; db1, db2 = sums of the tile partials.
+//   3. moe_wgrad_kernel twice: dW1s = x^T dz and dW2s = (p h)^T dout, with
+//      [C, E*F] / [E*F, C] outputs in 64x64 tiles and the T reduction split
+//      over `wsplits` blocks whose partials moe_sum_kernel adds in order.
+//
+// Scratch precision: dz and p*h are stored in bf16. The two weight-gradient
+// products consume them as bf16 operands, as the TPU kernel does
+// (dz.astype(cd), ph = (h*p).astype(cd)), so the rounding is the one the
+// products make anyway, and the two [T, E*F] scratches take 256 MB each at
+// batch 64 instead of 512. db1 is summed from the fp32 dz inside kernel 1.
+//
+// What bounds it: 10*T*C*F*E FLOPs (about 43 GFLOP per block at batch 64)
+// at the bf16 tensor-core rate, and at least the two scratches' traffic.
+// This first version stages every weight slice synchronously, keeps the dx
+// accumulator in shared memory and round-trips z and g through it, so it
+// runs far from either bound; wgmma, a TMA ring and register accumulators
+// are later work. C and F must be multiples of 16, the router width a
+// multiple of 8, and E at most 16.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int MAX_E = 16;
+constexpr size_t SMEM_LIMIT = 232448 - 1024;
+constexpr int WT = 64;   // weight-gradient output tile (rows and columns)
+constexpr int WKT = 32;  // tokens per weight-gradient step
+
+__host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
+
+// Shared-memory tiles of kernel 1, rows padded by 16 bytes against bank
+// conflicts in the WMMA fragment loads.
+struct Layout {
+  int ldx, ldw1, ldw2, ldz, ldh, ldacc;
+  size_t x, dout, w1, w2, z, g, h, acc, p, dp, total;
+  __host__ __device__ Layout(int BT, int FC, int C, int E) {
+    ldx = C + 8;     // bf16 [BT, C] (x and dout)
+    ldw1 = FC + 8;   // bf16 [C, FC]
+    ldw2 = C + 8;    // bf16 [FC, C]
+    ldz = FC + 4;    // fp32 [BT, FC] (z and g)
+    ldh = FC + 8;    // bf16 [BT, FC] (dz)
+    ldacc = C + 4;   // fp32 [BT, C]
+    size_t off = 0;
+    x = off; off += align128(sizeof(bf16) * BT * ldx);
+    dout = off; off += align128(sizeof(bf16) * BT * ldx);
+    w1 = off; off += align128(sizeof(bf16) * C * ldw1);
+    w2 = off; off += align128(sizeof(bf16) * FC * ldw2);
+    z = off; off += align128(sizeof(float) * BT * ldz);
+    g = off; off += align128(sizeof(float) * BT * ldz);
+    h = off; off += align128(sizeof(bf16) * BT * ldh);
+    acc = off; off += align128(sizeof(float) * BT * ldacc);
+    p = off; off += align128(sizeof(float) * BT * E);
+    dp = off; off += align128(sizeof(float) * BT * E);
+    total = off;
+  }
+};
+
+__device__ inline void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ inline void zero16(void* dst) { *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0); }
+
+// Cm[M, N] (+)= A[M, K] @ B[K, N] on shared-memory operands: bf16 A and B,
+// each row- or column-major, fp32 row-major Cm; one 16x16 output tile per
+// warp at a time. M, N, K multiples of 16.
+template <typename LayoutA, typename LayoutB>
+__device__ void mma_tiles(const bf16* A, int lda, const bf16* B, int ldb, float* Cm, int ldc,
+                          int M, int N, int K, bool accumulate) {
+  constexpr bool a_row = std::is_same<LayoutA, wmma::row_major>::value;
+  constexpr bool b_row = std::is_same<LayoutB, wmma::row_major>::value;
+  const int warp = threadIdx.x / 32, nt = N / 16;
+  for (int id = warp; id < (M / 16) * nt; id += NWARPS) {
+    const int mi = id / nt, ni = id % nt;
+    float* dst = Cm + mi * 16 * ldc + ni * 16;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    if (accumulate) {
+      wmma::load_matrix_sync(acc, dst, ldc, wmma::mem_row_major);
+    } else {
+      wmma::fill_fragment(acc, 0.f);
+    }
+    for (int kk = 0; kk < K / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb;
+      wmma::load_matrix_sync(fa, a_row ? A + mi * 16 * lda + kk * 16 : A + kk * 16 * lda + mi * 16, lda);
+      wmma::load_matrix_sync(fb, b_row ? B + kk * 16 * ldb + ni * 16 : B + ni * 16 * ldb + kk * 16, ldb);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(dst, acc, ldc, wmma::mem_row_major);
+  }
+}
+
+// Stage columns [j0, j0 + FC) of a row-major [rows, ld] bf16 matrix into a
+// [rows, FC] shared tile with row stride ldd; columns at or past `ncols`
+// are zero.
+__device__ inline void stage_cols(bf16* dst, int ldd, const bf16* src, int rows, int ld, int j0,
+                                  int FC, int ncols) {
+  const int fc8 = FC / 8;
+  for (int i = threadIdx.x; i < rows * fc8; i += NTHREADS) {
+    const int r = i / fc8, j = (i % fc8) * 8;
+    if (j0 + j < ncols) {
+      cp_async16(dst + r * ldd + j, src + (long long)r * ld + j0 + j);
+    } else {
+      zero16(dst + r * ldd + j);
+    }
+  }
+}
+
+// Stage `rows` full rows of a row-major [*, C] bf16 matrix (zero past `valid`).
+__device__ inline void stage_rows(bf16* dst, int ldd, const bf16* src, int rows, int valid, int C) {
+  const int c8 = C / 8;
+  for (int i = threadIdx.x; i < rows * c8; i += NTHREADS) {
+    const int r = i / c8, c = (i % c8) * 8;
+    if (r < valid) {
+      cp_async16(dst + r * ldd + c, src + (long long)r * C + c);
+    } else {
+      zero16(dst + r * ldd + c);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+moe_bwd_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
+                     const float* __restrict__ cw, const float* __restrict__ tl,
+                     const float* __restrict__ inv_temp, const bf16* __restrict__ w1,
+                     const float* __restrict__ b1, const bf16* __restrict__ w2,
+                     const bf16* __restrict__ dout, bf16* __restrict__ dz_out,
+                     bf16* __restrict__ ph_out, float* __restrict__ ws_dx,
+                     float* __restrict__ ws_dp, float* __restrict__ part_db1,
+                     float* __restrict__ part_db2, int T, int C, int Hd, int E, int F, int BT,
+                     int FC) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L(BT, FC, C, E);
+  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
+  bf16* sDO = reinterpret_cast<bf16*>(smem + L.dout);
+  bf16* sW1 = reinterpret_cast<bf16*>(smem + L.w1);
+  bf16* sW2 = reinterpret_cast<bf16*>(smem + L.w2);
+  float* sZ = reinterpret_cast<float*>(smem + L.z);
+  float* sG = reinterpret_cast<float*>(smem + L.g);
+  bf16* sH = reinterpret_cast<bf16*>(smem + L.h);
+  float* sAcc = reinterpret_cast<float*>(smem + L.acc);
+  float* sP = reinterpret_cast<float*>(smem + L.p);
+  float* sDP = reinterpret_cast<float*>(smem + L.dp);
+
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int t0 = tile * BT;
+  const int rows = min(BT, T - t0);
+  const int EF = E * F;
+
+  stage_rows(sX, L.ldx, x + (long long)t0 * C, BT, rows, C);
+  stage_rows(sDO, L.ldx, dout + (long long)t0 * C, BT, rows, C);
+  for (int i = tid; i < BT * L.ldacc; i += NTHREADS) sAcc[i] = 0.f;
+  for (int i = tid; i < BT * E; i += NTHREADS) {
+    sP[i] = 0.f;
+    sDP[i] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // Router logits (x @ fw) @ cw_f, FC hidden columns at a time, as the forward.
+  for (int j0 = 0; j0 < Hd; j0 += FC) {
+    stage_cols(sW1, L.ldw1, fw, C, Hd, j0, FC, Hd);
+    cp_async_wait_all();
+    __syncthreads();
+    mma_tiles<wmma::row_major, wmma::row_major>(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C,
+                                                false);
+    __syncthreads();
+    for (int i = tid; i < BT * E; i += NTHREADS) {
+      const int r = i / E, e = i % E;
+      float s = 0.f;
+      for (int jj = 0; jj < FC && j0 + jj < Hd; ++jj) s = fmaf(sZ[r * L.ldz + jj], cw[(j0 + jj) * E + e], s);
+      sP[i] += s;
+    }
+    __syncthreads();
+  }
+
+  // Soft routing probabilities, one thread per token.
+  for (int r = tid; r < BT; r += NTHREADS) {
+    const float it = inv_temp[0];
+    float p[MAX_E];
+    float mx = -INFINITY;
+    for (int e = 0; e < E; ++e) {
+      const float lg = (sP[r * E + e] + (r < rows ? tl[(long long)(t0 + r) * E + e] : 0.f)) * it;
+      p[e] = fminf(fmaxf(lg, -20.f), 20.f);
+      mx = fmaxf(mx, p[e]);
+    }
+    float sum = 0.f;
+    for (int e = 0; e < E; ++e) {
+      p[e] = expf(p[e] - mx);
+      sum += p[e];
+    }
+    float sum2 = 0.f;
+    for (int e = 0; e < E; ++e) {
+      p[e] = fminf(fmaxf(p[e] / sum, 1e-6f), 1.f);
+      sum2 += p[e];
+    }
+    for (int e = 0; e < E; ++e) sP[r * E + e] = p[e] / sum2;
+  }
+  __syncthreads();
+
+  // This block's share of the (expert, F-chunk) loop.
+  const int nfc = F / FC, nch = E * nfc;
+  const int ch_end = (int)((long long)(split + 1) * nch / splits);
+  for (int ch = (int)((long long)split * nch / splits); ch < ch_end; ++ch) {
+    const int e = ch / nfc, f0 = (ch % nfc) * FC;
+    stage_cols(sW1, L.ldw1, w1 + (long long)e * C * F, C, F, f0, FC, F);
+    stage_rows(sW2, L.ldw2, w2 + ((long long)e * F + f0) * C, FC, FC, C);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // z = x W1 slice; g = dout W2 slice^T (W2 slice [FC, C] read column-major).
+    mma_tiles<wmma::row_major, wmma::row_major>(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C,
+                                                false);
+    mma_tiles<wmma::row_major, wmma::col_major>(sDO, L.ldx, sW2, L.ldw2, sG, L.ldz, BT, FC, C,
+                                                false);
+    __syncthreads();
+
+    // Elementwise: sG <- g*h (for dp), sZ <- dz (for db1), sH <- bf16(dz),
+    // and the bf16 dz and p*h scratch rows.
+    for (int i = tid; i < BT * FC; i += NTHREADS) {
+      const int r = i / FC, j = i % FC;
+      const float z = sZ[r * L.ldz + j] + b1[(long long)e * F + f0 + j];
+      const float cdf = 0.5f * (1.f + erff(z * 0.70710678118654752f));
+      const float hv = __bfloat162float(__float2bfloat16(z * cdf));
+      const float pe = sP[r * E + e];
+      const float g = sG[r * L.ldz + j];
+      const float dz = g * pe * (cdf + z * 0.3989422804014327f * expf(-0.5f * z * z));
+      sG[r * L.ldz + j] = g * hv;
+      sZ[r * L.ldz + j] = dz;
+      const bf16 dzb = __float2bfloat16(dz);
+      sH[r * L.ldh + j] = dzb;
+      if (r < rows) {
+        const long long at = (long long)(t0 + r) * EF + e * F + f0 + j;
+        dz_out[at] = dzb;
+        ph_out[at] = __float2bfloat16(hv * pe);
+      }
+    }
+    __syncthreads();
+
+    // Row sums of g*h into dp[:, e]; column sums of dz into this tile's db1.
+    for (int i = tid; i < BT + FC; i += NTHREADS) {
+      if (i < BT) {
+        float s = 0.f;
+        for (int j = 0; j < FC; ++j) s += sG[i * L.ldz + j];
+        sDP[i * E + e] += s;
+      } else {
+        const int j = i - BT;
+        float s = 0.f;
+        for (int r = 0; r < rows; ++r) s += sZ[r * L.ldz + j];
+        part_db1[(long long)tile * EF + e * F + f0 + j] = s;
+      }
+    }
+
+    // dx += bf16(dz) W1 slice^T (W1 slice [C, FC] read column-major).
+    mma_tiles<wmma::row_major, wmma::col_major>(sH, L.ldh, sW1, L.ldw1, sAcc, L.ldacc, BT, C,
+                                                FC, true);
+    __syncthreads();
+  }
+
+  // This split's partials of dx and dp.
+  float* dx_part = ws_dx + ((long long)split * T + t0) * C;
+  for (int i = tid; i < rows * C; i += NTHREADS) {
+    const int r = i / C, c = i % C;
+    dx_part[i] = sAcc[r * L.ldacc + c];
+  }
+  float* dp_part = ws_dp + ((long long)split * T + t0) * E;
+  for (int i = tid; i < rows * E; i += NTHREADS) dp_part[i] = sDP[i];
+  if (split == 0) {
+    // This tile's sum of p * dout for db2.
+    for (int i = tid; i < E * C; i += NTHREADS) {
+      const int e = i / C, c = i % C;
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s = fmaf(sP[r * E + e], __bfloat162float(sDO[r * L.ldx + c]), s);
+      part_db2[(long long)tile * E * C + i] = s;
+    }
+  }
+}
+
+// dx = sum of the split partials; dp = sum of the split partials + dout . b2;
+// db1 and db2 = sums of the tile partials. Each output element is one
+// thread's sum in a fixed order.
+__global__ void moe_bwd_finish_kernel(const float* __restrict__ ws_dx,
+                                      const float* __restrict__ ws_dp,
+                                      const float* __restrict__ part_db1,
+                                      const float* __restrict__ part_db2,
+                                      const bf16* __restrict__ dout, const float* __restrict__ b2,
+                                      float* __restrict__ dx, float* __restrict__ dp,
+                                      float* __restrict__ db1, float* __restrict__ db2, int T,
+                                      int C, int E, int F, int splits, int ntiles) {
+  const long long n_dx = (long long)T * C, n_dp = (long long)T * E;
+  const long long n_db1 = (long long)E * F, n_db2 = (long long)E * C;
+  const long long total = n_dx + n_dp + n_db1 + n_db2;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    if (i < n_dx) {
+      float s = 0.f;
+      for (int k = 0; k < splits; ++k) s += ws_dx[k * n_dx + i];
+      dx[i] = s;
+    } else if (i < n_dx + n_dp) {
+      const long long j = i - n_dx;
+      const long long t = j / E;
+      const int e = static_cast<int>(j % E);
+      float s = 0.f;
+      for (int k = 0; k < splits; ++k) s += ws_dp[k * n_dp + j];
+      float bias = 0.f;
+      for (int c = 0; c < C; ++c)
+        bias = fmaf(__bfloat162float(dout[t * C + c]), b2[(long long)e * C + c], bias);
+      dp[j] = s + bias;
+    } else if (i < n_dx + n_dp + n_db1) {
+      const long long j = i - n_dx - n_dp;
+      float s = 0.f;
+      for (int k = 0; k < ntiles; ++k) s += part_db1[k * n_db1 + j];
+      db1[j] = s;
+    } else {
+      const long long j = i - n_dx - n_dp - n_db1;
+      float s = 0.f;
+      for (int k = 0; k < ntiles; ++k) s += part_db2[k * n_db2 + j];
+      db2[j] = s;
+    }
+  }
+}
+
+// out[s][M, N] = A[t-range s]^T B[t-range s] for bf16 row-major A [T, M] and
+// B [T, N]: block (n-tile, m-tile, s) owns a 64x64 output tile and the s-th
+// range of `tchunk` tokens. Each of the 8 warps keeps two 16x16 fp32
+// accumulators in registers. M and N must be multiples of 16; tiles
+// overhanging M or N are zero-filled and not stored.
+__global__ void __launch_bounds__(NTHREADS)
+moe_wgrad_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ out,
+                 int T, int M, int N, int tchunk) {
+  constexpr int LDS = WT + 8;
+  __shared__ __align__(128) bf16 sA[WKT * LDS];
+  __shared__ __align__(128) bf16 sB[WKT * LDS];
+  const int n0 = blockIdx.x * WT, m0 = blockIdx.y * WT, s = blockIdx.z;
+  const int tb = s * tchunk, te = min(T, tb + tchunk);
+  const int warp = threadIdx.x / 32;
+  // Warp w owns output tiles (mi, ni) = (w / 2, 2 * (w % 2) + {0, 1}).
+  const int mi = warp / 2, ni0 = 2 * (warp % 2);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  wmma::fill_fragment(acc[0], 0.f);
+  wmma::fill_fragment(acc[1], 0.f);
+
+  for (int t = tb; t < te; t += WKT) {
+    for (int i = threadIdx.x; i < 2 * WKT * (WT / 8); i += NTHREADS) {
+      const bool is_b = i >= WKT * (WT / 8);
+      const int k = is_b ? i - WKT * (WT / 8) : i;
+      const int r = k / (WT / 8), c = (k % (WT / 8)) * 8;
+      const int lim = is_b ? N : M;
+      const int col = (is_b ? n0 : m0) + c;
+      bf16* dst = (is_b ? sB : sA) + r * LDS + c;
+      if (t + r < te && col < lim) {
+        cp_async16(dst, (is_b ? B : A) + (long long)(t + r) * lim + col);
+      } else {
+        zero16(dst);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    for (int kk = 0; kk < WKT / 16; ++kk) {
+      // A^T tile: element (m, t) at sA[t * LDS + m], column-major.
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
+      wmma::load_matrix_sync(fa, sA + kk * 16 * LDS + mi * 16, LDS);
+      for (int q = 0; q < 2; ++q) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, sB + kk * 16 * LDS + (ni0 + q) * 16, LDS);
+        wmma::mma_sync(acc[q], fa, fb, acc[q]);
+      }
+    }
+    __syncthreads();
+  }
+  const int m = m0 + mi * 16;
+  for (int q = 0; q < 2; ++q) {
+    const int n = n0 + (ni0 + q) * 16;
+    if (m < M && n < N)
+      wmma::store_matrix_sync(out + ((long long)s * M + m) * N + n, acc[q], N,
+                              wmma::mem_row_major);
+  }
+}
+
+// out[i] = sum_k ws[k][i] for k < splits, in order.
+__global__ void moe_sum_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                               long long n, int splits) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < splits; ++k) s += ws[k * n + i];
+    out[i] = s;
+  }
+}
+
+int grid_for(long long n) {
+  const long long b = (n + 255) / 256;
+  return static_cast<int>(b < 65535 ? (b > 0 ? b : 1) : 65535);
+}
+
+// Largest token tile, then widest F-chunk, whose shared memory fits.
+bool pick_tiles(int C, int F, int E, int* bt, int* fc) {
+  const int bts[] = {64, 32, 16};
+  const int fcs[] = {64, 32, 16};
+  for (int b : bts) {
+    for (int f : fcs) {
+      if (F % f != 0) continue;
+      if (Layout(b, f, C, E).total <= SMEM_LIMIT) {
+        *bt = b;
+        *fc = f;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// Splits of the T reduction for an [M, N] weight gradient: enough blocks for
+// about two per SM, each with at least 512 tokens.
+int wgrad_splits(int T, int M, int N, int sms) {
+  const int tiles = ((M + WT - 1) / WT) * ((N + WT - 1) / WT);
+  int s = (2 * sms + tiles - 1) / tiles;
+  const int most = (T + 511) / 512;
+  if (s > most) s = most;
+  if (s > 65535) s = 65535;
+  return s < 1 ? 1 : s;
+}
+
+int wgrad_chunk(int T, int splits) {
+  const int c = (T + splits - 1) / splits;
+  return (c + WKT - 1) / WKT * WKT;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* moegan_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The plan at (T, C, F, E) on a card with `sms` SMs: plan[0..4] = token tile,
+// F-chunk, splits of the (expert, F-chunk) loop, and the T splits of the dW1
+// and dW2 reductions. Returns 0 if no tile fits shared memory.
+int moegan_fused_moe_bwd_plan(int T, int C, int F, int E, int sms, int* plan) {
+  int bt = 0, fc = 0;
+  if (!pick_tiles(C, F, E, &bt, &fc)) return 0;
+  const int ntiles = (T + bt - 1) / bt;
+  const int nch = E * (F / fc);
+  const int s = (sms + ntiles - 1) / ntiles;
+  plan[0] = bt;
+  plan[1] = fc;
+  plan[2] = s < 1 ? 1 : (s > nch ? nch : s);
+  plan[3] = wgrad_splits(T, C, E * F, sms);
+  plan[4] = wgrad_splits(T, E * F, C, sms);
+  return 1;
+}
+
+// Buffers (the wrapper allocates them from the plan):
+//   dz, ph: bf16 [T, E*F] scratch; ws_dx fp32 [splits, T, C]; ws_dp fp32
+//   [splits, T, E]; part_db1 fp32 [ntiles, E*F]; part_db2 fp32 [ntiles, E*C];
+//   ws_w1 fp32 [plan[3], C, E*F] and ws_w2 fp32 [plan[4], E*F, C] (may be
+//   null when that count is 1: the sum goes straight to dw1s / dw2s).
+// Outputs, all fp32: dx [T, C], dp [T, E], dw1s [C, E*F], db1 [E*F],
+//   dw2s [E*F, C], db2 [E*C].
+// Returns the cudaError_t of the launches (cudaErrorInvalidValue if the
+// arguments do not match the plan).
+int moegan_fused_moe_bwd(const void* x, const void* fw, const void* cw, const void* tl,
+                         const void* inv_temp, const void* w1, const void* b1, const void* w2,
+                         const void* b2, const void* dout, void* dz, void* ph, void* ws_dx,
+                         void* ws_dp, void* part_db1, void* part_db2, void* ws_w1, void* ws_w2,
+                         void* dx, void* dp, void* dw1s, void* db1, void* dw2s, void* db2, int T,
+                         int C, int Hd, int E, int F, const int* plan, void* stream) {
+  int bt = 0, fc = 0;
+  if (!pick_tiles(C, F, E, &bt, &fc) || bt != plan[0] || fc != plan[1] || plan[2] < 1 ||
+      plan[2] > 65535 || (plan[3] > 1 && ws_w1 == nullptr) || (plan[4] > 1 && ws_w2 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = plan[2];
+  const int ntiles = (T + bt - 1) / bt;
+  const int EF = E * F;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Layout L(bt, fc, C, E);
+  cudaError_t err = cudaFuncSetAttribute(moe_bwd_token_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.total));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  moe_bwd_token_kernel<<<dim3(ntiles, splits), NTHREADS, L.total, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(fw), static_cast<const float*>(cw),
+      static_cast<const float*>(tl), static_cast<const float*>(inv_temp),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dz), static_cast<bf16*>(ph),
+      static_cast<float*>(ws_dx), static_cast<float*>(ws_dp), static_cast<float*>(part_db1),
+      static_cast<float*>(part_db2), T, C, Hd, E, F, bt, fc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  const long long n_fin = (long long)T * C + (long long)T * E + (long long)EF + (long long)E * C;
+  moe_bwd_finish_kernel<<<grid_for(n_fin), 256, 0, st>>>(
+      static_cast<const float*>(ws_dx), static_cast<const float*>(ws_dp),
+      static_cast<const float*>(part_db1), static_cast<const float*>(part_db2),
+      static_cast<const bf16*>(dout), static_cast<const float*>(b2), static_cast<float*>(dx),
+      static_cast<float*>(dp), static_cast<float*>(db1), static_cast<float*>(db2), T, C, E, F,
+      splits, ntiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  // dW1s [C, E*F] = x^T dz and dW2s [E*F, C] = (p h)^T dout.
+  const void* as[2] = {x, ph};
+  const void* bs[2] = {dz, dout};
+  void* wss[2] = {ws_w1, ws_w2};
+  void* outs[2] = {dw1s, dw2s};
+  const int ms[2] = {C, EF}, ns[2] = {EF, C};
+  for (int g = 0; g < 2; ++g) {
+    const int ws = plan[3 + g];
+    float* dst = static_cast<float*>(ws > 1 ? wss[g] : outs[g]);
+    const dim3 grid((ns[g] + WT - 1) / WT, (ms[g] + WT - 1) / WT, ws);
+    moe_wgrad_kernel<<<grid, NTHREADS, 0, st>>>(static_cast<const bf16*>(as[g]),
+                                                static_cast<const bf16*>(bs[g]), dst, T, ms[g],
+                                                ns[g], wgrad_chunk(T, ws));
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if (ws > 1) {
+      const long long n = (long long)ms[g] * ns[g];
+      moe_sum_kernel<<<grid_for(n), 256, 0, st>>>(dst, static_cast<float*>(outs[g]), n, ws);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"

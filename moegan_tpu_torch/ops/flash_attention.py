@@ -1,15 +1,24 @@
-"""Flash-attention forward: CUDA kernel wrapper and its plain PyTorch version.
+"""Flash attention: CUDA kernel wrappers, their plain PyTorch versions, and
+the autograd function that joins the forward and the backward.
 
-Counterpart of moegan_tpu/ops/flash_attention.py, forward only: the TPU
-kernel `_fwd_kernel` (launched by `_flash_forward`) becomes
-`csrc/flash_attention.cu`. The math is the TPU kernel's default: q
+Counterpart of moegan_tpu/ops/flash_attention.py: the TPU kernel
+`_fwd_kernel` (launched by `_flash_forward`) becomes
+`csrc/flash_attention.cu`, and `_bwd_fused_kernel` (launched by
+`_flash_backward`) becomes `csrc/flash_attention_bwd.cu`. The math is the
+TPU kernel's default: q
 pre-scaled by log2(e)/sqrt(D) in the input dtype (the scale itself rounded
 to that dtype), base-2 softmax, and the denominator summed from the same
 p, rounded to v's dtype, that multiplies v. The optional lse is the base-2
 logsumexp per row, [B, H, T] float32.
 
-Dispatch: a CPU tensor takes `flash_attention_reference`; a CUDA tensor
-launches the kernel or raises. There is no fallback between the two.
+`FlashAttentionFunction` is the differentiable form: its forward launches
+the lse variant and saves q, k, v, o and lse; its backward launches the
+backward kernel. A forward without grad (the D phase's fake) calls
+`flash_attention` directly and writes no lse.
+
+Dispatch: a CPU tensor takes the plain version (`flash_attention_reference`,
+`flash_attention_bwd_reference`); a CUDA tensor launches the kernel or
+raises. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch
 from moegan_tpu_torch.ops import _build
 
 LOG2E = math.log2(math.e)
+LN2 = math.log(2.0)
 
 
 def _q_scale(D: int, dtype: torch.dtype) -> float:
@@ -42,6 +52,15 @@ def flash_attention_reference(q, k, v, with_lse: bool = False):
     if with_lse:
         return o, (m + torch.log2(l)).squeeze(-1)
     return o
+
+
+def flash_attention_bwd_reference(q, k, v, do):
+    """Plain version of the backward kernel: (dq, dk, dv), the autograd of
+    `flash_attention_reference` at (q, k, v) for the cotangent do."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = flash_attention_reference(*leaves)
+        return torch.autograd.grad(o, leaves, do.to(o.dtype))
 
 
 def _check_cuda_inputs(q, k, v):
@@ -100,3 +119,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse:
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """(dq, dk, dv) of `flash_attention` at (q, k, v) for the cotangent do.
+
+    o and lse are the forward's outputs (`with_lse=True`). On CUDA all of q,
+    k, v, o, do are bf16 [B, T, H, D] (q, k, v may be strided views, as in
+    the forward) and dq, dk, dv come back contiguous in bf16.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda tensors, got {q.device}")
+    _check_cuda_inputs(q, k, v)
+    B, T, H, D = q.shape
+    o, do = o.contiguous(), do.to(q.dtype).contiguous()
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name}: want {q.dtype} {tuple(q.shape)} on {q.device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if lse.shape != (B, H, T) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse: want contiguous float32 {(B, H, T)}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 9)(
+        *(t.stride(i) for t in (q, k, v) for i in (0, 1, 2))
+    )
+    scale = _q_scale(D, q.dtype)
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.moegan_flash_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p,
+    ]
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, T, H, D, strides, scale, scale * LN2, LN2,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable `flash_attention`: q, k, v [B, T, H, D] -> o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_bwd(*ctx.saved_tensors, do)

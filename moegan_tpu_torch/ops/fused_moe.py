@@ -1,9 +1,14 @@
-"""Fused Bayesian-MoE forward: CUDA kernel wrapper and its plain PyTorch version.
+"""Fused Bayesian-MoE: CUDA kernel wrappers, their plain PyTorch versions,
+and the autograd function that joins the forward and the backward.
 
-Counterpart of moegan_tpu/ops/fused_moe.py, forward only. One CUDA kernel,
-`csrc/fused_moe.cu`, replaces both TPU kernels `_fused_moe_kernel` (v1) and
-`_fused_moe_kernel_v2`: they compute the same function, and the VMEM gate
-that chose between them on the TPU has no meaning on Hopper.
+Counterpart of moegan_tpu/ops/fused_moe.py. One CUDA kernel,
+`csrc/fused_moe.cu`, replaces both TPU forward kernels `_fused_moe_kernel`
+(v1) and `_fused_moe_kernel_v2`: they compute the same function, and the
+VMEM gate that chose between them on the TPU has no meaning on Hopper.
+`csrc/fused_moe_bwd.cu` replaces the backward `_fused_moe_bwd_kernel_v2`
+and covers the v1 `_bwd_fused_kernel` (the same gradient). The TPU path
+sends the res-4 block (C=512), whose accumulators miss the VMEM budget, to
+an XLA recompute; here the kernel takes every block.
 
 The function: router logits ((x @ fw) @ cw_f + text_logits) * inv_temp,
 clipped to +-20; softmax, floor 1e-6, renorm; under `hard`, the multi-hot
@@ -11,8 +16,16 @@ of the maxima renormalised (a tie splits evenly, `_routing_probs`,
 fused_moe.py:67-77); then sum_e p_e * (gelu_erf(x @ W1_e + b1_e) @ W2_e +
 b2_e), with the hidden activation rounded to x's dtype.
 
-Dispatch: a CPU tensor takes `moe_ffn_reference`; a CUDA tensor launches
-the kernel or raises. There is no fallback between the two.
+`FusedMoEFunction` is the differentiable form under soft routing (the
+training path): the forward kernel saves only its inputs, as `_fused_fwd`
+does; the backward kernel gives the FFN and combine part of the gradient,
+and the router chain's part is plain autograd over a recompute of
+`router_probs`, fed the probs cotangent plus the combine's, as the JAX
+package leaves it to XLA (`_fused_moe_bwd_v2`).
+
+Dispatch: a CPU tensor takes the plain version (`moe_ffn_reference`,
+`moe_ffn_bwd_reference`); a CUDA tensor launches the kernel or raises.
+There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -43,17 +56,40 @@ def routing_probs(logits: torch.Tensor, hard: bool) -> torch.Tensor:
     return probs
 
 
-def moe_ffn_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, hard: bool):
-    """Plain version (moegan_tpu/ops/fused_moe.py:80-94): returns (out [T, C] in x's dtype, probs [T, E] fp32)."""
-    xf = x.float()
-    logits = ((xf @ fw.float()) @ cw_f.float() + text_logits.float()) * inv_temp
-    probs = routing_probs(logits, hard)
-    cd = x.dtype
+def router_probs(x, fw, cw_f, text_logits, inv_temp, hard: bool = False):
+    """The router part (`_router_probs_fn`, fused_moe.py:579-584): probs [T, E] fp32."""
+    logits = ((x.float() @ fw.float()) @ cw_f.float() + text_logits.float()) * inv_temp
+    return routing_probs(logits, hard)
+
+
+def ffn_combine(xf, probs, w1, b1, w2, b2, cd: torch.dtype) -> torch.Tensor:
+    """sum_e p_e * (gelu(x @ W1_e + b1_e) @ W2_e + b2_e) in fp32, from fp32 tokens xf;
+    the weights and the hidden activation are rounded to `cd` as the kernels round them."""
     h = torch.einsum("tc,ecf->etf", xf, w1.to(cd).float()) + b1.float()[:, None, :]
     h = gelu_exact(h).to(cd).float()
     y = torch.einsum("etf,efc->etc", h, w2.to(cd).float()) + b2.float()[:, None, :]
-    out = torch.einsum("te,etc->tc", probs, y)
-    return out.to(cd), probs
+    return torch.einsum("te,etc->tc", probs, y)
+
+
+def moe_ffn_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, hard: bool):
+    """Plain version (moegan_tpu/ops/fused_moe.py:80-94): returns (out [T, C] in x's dtype, probs [T, E] fp32)."""
+    probs = router_probs(x, fw, cw_f, text_logits, inv_temp, hard)
+    return ffn_combine(x.float(), probs, w1, b1, w2, b2, x.dtype).to(x.dtype), probs
+
+
+def moe_ffn_bwd_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
+    """Plain version of the backward kernel under soft routing: (dx_ffn [T, C],
+    dp [T, E], dw1 [E, C, F], db1 [E, F], dw2 [E, F, C], db2 [E, C]), all fp32.
+
+    The autograd of the FFN and combine with the routing probs held fixed:
+    the router chain's part of dx is not in dx_ffn, and dp is the combine's
+    cotangent of the probs.
+    """
+    probs = router_probs(x, fw, cw_f, text_logits, inv_temp)
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_(True) for t in (x, probs, w1, b1, w2, b2)]
+        out = ffn_combine(*leaves, x.dtype)
+        return torch.autograd.grad(out, leaves, dout.float())
 
 
 def _check_cuda_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2):
@@ -145,3 +181,99 @@ def _plan(T: int, C: int, F: int, E: int, sms: int) -> tuple[int, int, int]:
     if not fn(T, C, F, E, sms, ctypes.byref(bt), ctypes.byref(fc), ctypes.byref(splits)):
         raise ValueError(f"no tile fits shared memory at C={C}, F={F}, E={E}")
     return bt.value, fc.value, splits.value
+
+
+def fused_moe_bwd(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
+    """The FFN and combine part of the soft-routing gradient of `fused_moe_ffn`.
+
+    Takes the forward's inputs (as `fused_moe_ffn`, inv_temp a 1-element
+    tensor) and the output cotangent dout [T, C] (x's dtype). Returns
+    (dx_ffn, dp, dw1, db1, dw2, db2) in float32, as `moe_ffn_bwd_reference`.
+    """
+    if x.device.type == "cpu":
+        return moe_ffn_bwd_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_moe_bwd runs on cpu or cuda tensors, got {x.device}")
+    inv_temp = inv_temp.reshape(1)
+    _check_cuda_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2)
+    T, C = x.shape
+    E, _, F = w1.shape
+    dout = dout.to(x.dtype).contiguous()
+    if dout.shape != x.shape:
+        raise ValueError(f"dout: want {tuple(x.shape)}, got {tuple(dout.shape)}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dp = torch.empty((T, C), **f32), torch.empty((T, E), **f32)
+    dw1s, db1 = torch.empty((C, E * F), **f32), torch.empty((E, F), **f32)
+    dw2, db2 = torch.empty((E, F, C), **f32), torch.empty((E, C), **f32)
+    bt, _, splits, ws1, ws2 = plan = bwd_kernel_plan(T, C, F, E, x.device)
+    ntiles = -(-T // bt)
+    bf = dict(dtype=x.dtype, device=x.device)
+    # bf16 scratch of dz and p*h for the weight-gradient products, and the
+    # partial sums that the kernel's later passes add in a fixed order
+    dz, ph = torch.empty((T, E * F), **bf), torch.empty((T, E * F), **bf)
+    ws_dx, ws_dp = torch.empty((splits, T, C), **f32), torch.empty((splits, T, E), **f32)
+    part_db1, part_db2 = torch.empty((ntiles, E * F), **f32), torch.empty((ntiles, E * C), **f32)
+    ws_w1 = torch.empty((ws1, C, E * F), **f32) if ws1 > 1 else None
+    ws_w2 = torch.empty((ws2, E * F, C), **f32) if ws2 > 1 else None
+    lib = _build.load("fused_moe_bwd")
+    fn = lib.moegan_fused_moe_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ]
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    rc = fn(
+        *(ptr(t) for t in (x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout, dz, ph,
+                           ws_dx, ws_dp, part_db1, part_db2, ws_w1, ws_w2,
+                           dx, dp, dw1s, db1, dw2, db2)),
+        T, C, fw.shape[-1], E, F, (ctypes.c_int * 5)(*plan),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, rc, "fused_moe_bwd")
+    fused_moe_bwd.launches += 1
+    return dx, dp, dw1s.reshape(C, E, F).permute(1, 0, 2), db1, dw2, db2
+
+
+fused_moe_bwd.launches = 0
+
+
+def bwd_kernel_plan(T: int, C: int, F: int, E: int, device) -> tuple[int, int, int, int, int]:
+    """(token tile, F-chunk, splits, dW1 T-splits, dW2 T-splits) of the backward kernel."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _bwd_plan(T, C, F, E, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(T: int, C: int, F: int, E: int, sms: int) -> tuple[int, int, int, int, int]:
+    lib = _build.load("fused_moe_bwd")
+    plan = (ctypes.c_int * 5)()
+    fn = lib.moegan_fused_moe_bwd_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    if not fn(T, C, F, E, sms, plan):
+        raise ValueError(f"no tile fits shared memory at C={C}, F={F}, E={E}")
+    return tuple(plan)
+
+
+class FusedMoEFunction(torch.autograd.Function):
+    """Differentiable `fused_moe_ffn` under soft routing -> (out, probs).
+
+    inv_temp is a 1-element float32 tensor, so that its gradient reaches the
+    router's temperature.
+    """
+
+    @staticmethod
+    def forward(ctx, x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2):
+        ctx.save_for_backward(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2)
+        return fused_moe_ffn(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, hard=False)
+
+    @staticmethod
+    def backward(ctx, dout, dprobs):
+        x, fw, cw_f, tl, it, w1, b1, w2, b2 = ctx.saved_tensors
+        dx_ffn, dp, dw1, db1, dw2, db2 = fused_moe_bwd(x, fw, cw_f, tl, it, w1, b1, w2, b2, dout)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (x, fw, cw_f, tl, it)]
+            probs = router_probs(*leaves)
+            dx_r, dfw, dcw, dtl, dit = torch.autograd.grad(probs, leaves, dprobs.float() + dp)
+        return ((dx_ffn + dx_r.float()).to(x.dtype), dfw, dcw, dtl, dit,
+                dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))

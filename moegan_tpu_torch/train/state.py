@@ -1,0 +1,99 @@
+"""Training state and the optimizer (counterpart of moegan_tpu/train/state.py).
+
+`TrainState` holds the generator, the discriminator and one `AdamWState`
+for each. The optimizer is the JAX package's optax chain, written out over
+flat float32 buffers so that it matches optax step for step:
+
+    skip_if_nonfinite(chain(clip_by_global_norm(clip),
+                            adamw(schedule, b1, b2, eps=1e-8, weight_decay)))
+
+- clip_by_global_norm scales the gradients by clip / norm when
+  norm >= clip (not `torch.nn.utils.clip_grad_norm_`, which adds 1e-6);
+- adamw takes the learning rate of the update count before this update,
+  bias-corrects both moments, and adds weight_decay * p to the Adam
+  direction before scaling by -lr;
+- skip_if_nonfinite (state.py:40-81): when any incoming gradient is not
+  finite, the parameters, moments and count stay as they were and
+  `notfinite_count` rises by one; after `max_consecutive_errors` such
+  updates in a row the update passes through. The choice is a select on
+  the device, so the step never waits on the host.
+
+Parameters are updated in place (the JAX step returns new arrays).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from moegan_tpu_torch import resolve_device
+from moegan_tpu_torch.config import TrainConfig
+from moegan_tpu_torch.models.discriminator import AuroraDiscriminator
+from moegan_tpu_torch.models.generator import AuroraGenerator
+
+MAX_CONSECUTIVE_ERRORS = 100
+
+
+@dataclass
+class AdamWState:
+    count: torch.Tensor  # int32 scalar: updates applied
+    mu: torch.Tensor  # flat fp32 first moment
+    nu: torch.Tensor  # flat fp32 second moment
+    notfinite_count: torch.Tensor  # int32 scalar: non-finite updates in a row
+
+
+def init_adamw(params) -> AdamWState:
+    params = list(params)
+    dev = params[0].device
+    n = sum(p.numel() for p in params)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return AdamWState(zero, torch.zeros(n, device=dev), torch.zeros(n, device=dev), zero.clone())
+
+
+@torch.no_grad()
+def clipped_adamw_update(params, grads, state: AdamWState, lr_fn, clip: float, b1: float,
+                         b2: float, weight_decay: float, eps: float = 1e-8,
+                         max_consecutive_errors: int = MAX_CONSECUTIVE_ERRORS) -> None:
+    """One optimizer update of `params` (a list of tensors) from `grads`, in place."""
+    params = list(params)
+    g = torch.cat([x.reshape(-1).float() for x in grads])
+    p = torch.cat([x.reshape(-1).float() for x in params])
+    finite = torch.isfinite(g).all()
+    norm = torch.sqrt(torch.sum(g * g))
+    g = torch.where(norm < clip, g, g / norm * clip)
+    count_inc = state.count + 1
+    mu = (1 - b1) * g + b1 * state.mu
+    nu = (1 - b2) * (g * g) + b2 * state.nu
+    mu_hat = mu / (1 - b1 ** count_inc.float())
+    nu_hat = nu / (1 - b2 ** count_inc.float())
+    update = (mu_hat / (torch.sqrt(nu_hat) + eps) + weight_decay * p) * -lr_fn(state.count)
+    use_new = finite | (state.notfinite_count >= max_consecutive_errors)
+    p = p + torch.where(use_new, update, torch.zeros_like(update))
+    state.mu = torch.where(use_new, mu, state.mu)
+    state.nu = torch.where(use_new, nu, state.nu)
+    state.count = torch.where(use_new, count_inc, state.count)
+    state.notfinite_count = torch.where(finite, torch.zeros_like(state.notfinite_count),
+                                        state.notfinite_count + 1)
+    torch._foreach_copy_(params, [v.view_as(x) for v, x in
+                                  zip(p.split([x.numel() for x in params]), params)])
+
+
+@dataclass
+class TrainState:
+    step: int
+    generator: AuroraGenerator
+    discriminator: AuroraDiscriminator
+    g_opt: AdamWState
+    d_opt: AdamWState
+
+
+def create_train_state(cfg: TrainConfig, device="cuda", seed: int | None = None) -> TrainState:
+    """G and D from the port's seeded initialisers (`seed`, default cfg.seed) on
+    `device`, with fresh optimizer states. Raises without a card unless
+    device="cpu"."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+    g = AuroraGenerator(cfg.generator, gen=gen).to(dev)
+    d = AuroraDiscriminator(cfg.discriminator, gen=gen).to(dev)
+    return TrainState(0, g, d, init_adamw(g.parameters()), init_adamw(d.parameters()))

@@ -53,3 +53,44 @@ def test_moe_kernel_matches_plain_on_card(cuda_device, C, T, hard):
     assert torch.equal(out, out2)  # split partials are summed in a fixed order
     torch.testing.assert_close(p, want_p, atol=1e-5, rtol=0)
     torch.testing.assert_close(out.float(), want_out.float(), atol=3e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,D", [(256, 8, 16), (1024, 2, 32), (200, 1, 32), (136, 2, 64)])
+def test_flash_bwd_kernel_matches_plain_on_card(cuda_device, T, H, D):
+    g = torch.Generator(device=cuda_device).manual_seed(T + 1)
+    y = torch.randn((2, T, 3 * H * D), generator=g, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (y[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D)) for i in range(3))
+    do = torch.randn((2, T, H, D), generator=g, device=cuda_device).to(torch.bfloat16)
+    o, lse = tfa.flash_attention(q, k, v, with_lse=True)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = tfa.flash_attention_bwd_reference(q, k, v, do)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip("qkv", got, again, want):
+        assert torch.equal(a, b), f"d{name}: two calls differ"
+        # bf16 outputs with p and ds rounded to bf16 before their products:
+        # a few bf16 ulps of the largest gradient.
+        atol = 8 * 2.0 ** -8 * c.float().abs().max().item()
+        torch.testing.assert_close(a.float(), c.float(), atol=atol, rtol=0, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,T", [(512, 100), (128, 300), (32, 1000), (16, 77)])
+def test_moe_bwd_kernel_matches_plain_on_card(cuda_device, C, T):
+    a = moe_inputs(seed=C + 1, T=T, C=C, F=4 * C, h=128)
+    bf = {"x", "fw", "w1", "w2"}
+    args = [t(a[k]).to(cuda_device, torch.bfloat16 if k in bf else torch.float32)
+            if k != "inv_temp" else torch.full((1,), a[k], device=cuda_device) for k in MOE_ORDER]
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    dout = torch.randn((T, C), generator=g, device=cuda_device).to(torch.bfloat16)
+    got = tfm.fused_moe_bwd(*args, dout)
+    again = tfm.fused_moe_bwd(*args, dout)
+    want = tfm.moe_ffn_bwd_reference(*args, dout)
+    torch.cuda.synchronize()
+    for name, x, y, z in zip(("dx", "dp", "dw1", "db1", "dw2", "db2"), got, again, want):
+        assert torch.equal(x, y), f"{name}: two calls differ"
+        # dz and p*h are rounded to bf16 before the products (2^-9 relative
+        # each); sums over up to 4C hidden units or T tokens.
+        scale = z.abs().max().item()
+        torch.testing.assert_close(x, z, atol=3e-2 * scale, rtol=0, msg=name)

@@ -124,7 +124,8 @@ def test_sparse_moe_matches_jax():
     x, w = randn(15, 2, 37, 16), randn(16, 2, 20)
     want_out, _, want_p = JaxSparseMoE(16, 20, 4, 8, F32, use_pallas=True).apply(
         jax_variables(m), x, w, training=False)
-    got_out, got_p = m(t(x), t(w))
+    got_out, kl, got_p = m(t(x), t(w))
+    assert kl.item() == 0.0
     np.testing.assert_array_equal(got_p.detach().numpy(), np.asarray(want_p))
     _close(got_out, want_out)
 
@@ -137,7 +138,8 @@ def test_generative_block_matches_jax():
     jb = JaxGenerativeBlock(16, 20, upsample=True, use_offset=True, heads=1, num_experts=4,
                             router_hidden=8, compute_dtype=F32, use_pallas=True)
     want_x, _, want_p = jb.apply(jax_variables(m), x, w, ts, False)
-    got_x, got_p = m(t(x), t(w), t(ts))
+    got_x, kl, got_p = m(t(x), t(w), t(ts))
+    assert kl.item() == 0.0
     np.testing.assert_array_equal(got_p.detach().numpy(), np.asarray(want_p))
     _close(got_x, want_x, atol=2e-5)
 

@@ -180,8 +180,8 @@ def test_save_npz_reads_back_in_both_packages(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py and the port's profile script import
-    with jax, flax and moegan_tpu blocked."""
+    """Every module of the port (the training slice's included), chip_smoke.py and
+    the port's profile scripts import with jax, flax and moegan_tpu blocked."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'moegan_tpu'):\n"
@@ -191,14 +191,18 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "sys.path.insert(0, 'scripts')\n"
-        "import chip_smoke, torch_serving_profile\n"
-        "print(len(names))\n"
+        "import chip_smoke, torch_serving_profile, torch_train_profile\n"
+        "print(' '.join(names))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 17
+    names = set(out.stdout.split())
+    assert len(names) >= 22
+    assert {"moegan_tpu_torch.models.discriminator", "moegan_tpu_torch.losses.gan",
+            "moegan_tpu_torch.train.schedules", "moegan_tpu_torch.train.state",
+            "moegan_tpu_torch.train.step"} <= names
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

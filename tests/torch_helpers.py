@@ -10,6 +10,10 @@ import torch
 
 from moegan_tpu_torch.convert import torch_to_jax
 
+# The tests run beside each other in several worker processes; tiny shapes
+# gain nothing from a thread per core, and the workers would fight over them.
+torch.set_num_threads(2)
+
 # The tiny generator of the slice test: use_pallas=True is the JAX default,
 # so JAX on the CPU goes through moe_ffn_reference and chunked attention
 # (the kernels' math); float32 on both sides for tight tolerances.
@@ -74,3 +78,34 @@ def moe_inputs(seed=0, T=96, C=32, F=128, E=4, h=8, tie_row=5):
 
 
 MOE_ORDER = ("x", "fw", "cw_f", "text_logits", "inv_temp", "w1", "b1", "w2", "b2")
+
+
+def router_noise_interceptor(noise_by_call):
+    """A `flax.linen.intercept_methods` interceptor that feeds the JAX routers
+    the test's noise: the n-th call of a router's `sample_weights(True)`
+    returns `reparameterize(mu, rho, eps)` with eps = noise_by_call[n][res]
+    (eps_f, eps_t, eps_c), res read from the router's path
+    (gen_block_{res}/attn_block/moe/router). Returns (interceptor, calls),
+    calls counting the calls per router path. JAX is imported here, not at
+    the top: tests/test_torch_cuda.py imports this module where there is none.
+    """
+    import jax.numpy as jnp
+
+    from moegan_tpu.core.router import reparameterize
+
+    calls = {}
+
+    def intercept(next_fun, args, kwargs, context):
+        sampling = args[0] if args else kwargs.get("sampling", False)
+        if context.method_name != "sample_weights" or not sampling:
+            return next_fun(*args, **kwargs)
+        m = context.module
+        res = int(m.path[0].rsplit("_", 1)[1])
+        n = calls.get(m.path, 0)
+        calls[m.path] = n + 1
+        pairs = ((m.feature_mu, m.feature_rho), (m.text_mu, m.text_rho),
+                 (m.combined_mu, m.combined_rho))
+        return tuple(reparameterize(mu, rho, jnp.asarray(e))
+                     for (mu, rho), e in zip(pairs, noise_by_call[n][res]))
+
+    return intercept, calls
