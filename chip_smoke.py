@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's 64x64 serving path and training step on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's 64x64 serving path, training step and distributed
+training on one NVIDIA GPU and check them.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and nvcc (it builds the port's kernels from `moegan_tpu_torch/ops/csrc`).
 It imports nothing of JAX or of the JAX package. Phases, each fatal on
 failure (non-zero exit, no result line):
 
-1. the card's name and power limit; build the four CUDA kernels (one nvcc
+1. the card's name and power limit; build the CUDA kernels (one nvcc
    process per source, started together);
 2. each forward kernel against its plain PyTorch version on the card, in
    bf16, at every shape the serving path gives it at batch 16, with times
@@ -31,7 +32,18 @@ failure (non-zero exit, no result line):
    kernels are counted on their own and must be 6 / 3 / 10 / 5;
 7. one full-width step at batch 4 on the card (kernels, bf16) against the
    same weights, batch and noise on the CPU (plain versions, float32):
-   losses and the cosine of each parameter group's gradient.
+   losses and the cosine of each parameter group's gradient;
+8. the expert-parallel combine kernels (forward, soft and one-hot, and
+   backward) against their plain versions at every MoE shape of the step at
+   batch 64, for 2 and 1 local experts, two calls bit-identical;
+9. the distributed path: two ranks (data 1 x expert 2) spawned on the one
+   card over gloo after every kernel was built here. One distributed step
+   against the single-process step on the same weights, batch and noise
+   (losses within 2 %, gradient cosine >= 0.99), then `train_aurora_gan`
+   for one epoch of 3 steps and a validation batch; each step's launches
+   must be 6 / 3 flash, 0 / 0 fused MoE and 10 / 5 combine, the validation
+   batch's 5 combine forwards. ms/step is two ranks sharing one card over
+   gloo, not a multi-GPU number.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -582,19 +594,22 @@ def generator_phase(cfg, state_dict, tfm):
 # --- phases 6-7: the training step -------------------------------------------------------
 
 EXPECTED_STEP_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd": 3,
-                          "fused_moe_fwd": 10, "fused_moe_bwd": 5}
+                          "fused_moe_fwd": 10, "fused_moe_bwd": 5,
+                          "moe_combine_fwd": 0, "moe_combine_bwd": 0}
 
 
 def launch_counts(tfa, tfm):
     return {"flash_attention_fwd": tfa.flash_attention.launches,
             "flash_attention_bwd": tfa.flash_attention_bwd.launches,
             "fused_moe_fwd": tfm.fused_moe_ffn.launches,
-            "fused_moe_bwd": tfm.fused_moe_bwd.launches}
+            "fused_moe_bwd": tfm.fused_moe_bwd.launches,
+            "moe_combine_fwd": tfm.moe_ffn_combine.launches,
+            "moe_combine_bwd": tfm.moe_ffn_combine_bwd.launches}
 
 
 def reset_counts(tfa, tfm):
     for fn in (tfa.flash_attention, tfa.flash_attention_bwd, tfm.fused_moe_ffn,
-               tfm.fused_moe_bwd):
+               tfm.fused_moe_bwd, tfm.moe_ffn_combine, tfm.moe_ffn_combine_bwd):
         fn.launches = 0
 
 
@@ -746,6 +761,350 @@ def train_vs_cpu_phase():
     return losses, groups
 
 
+# --- phase 8: the expert-parallel combine kernels against their plain versions ---------
+
+
+def combine_args(dev, E, C, T, onehot, seed):
+    """A rank's inputs to the combine at expert parallelism 4 / E: E local experts of
+    4, probs = the local columns of a softmax (or one-hot) over 4, weights at the
+    init scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    F_ = 4 * C
+    probs = torch.softmax(torch.randn((T, 4), generator=g, device=dev) * 2, dim=-1)
+    if onehot:
+        probs = torch.nn.functional.one_hot(probs.argmax(-1), 4).float()
+
+    def ru(*shape, bound):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * bound
+
+    return [torch.randn((T, C), generator=g, device=dev).to(torch.bfloat16),
+            probs[:, :E].contiguous(),
+            ru(E, C, F_, bound=C ** -0.5).to(torch.bfloat16), ru(E, F_, bound=C ** -0.5),
+            ru(E, F_, C, bound=F_ ** -0.5).to(torch.bfloat16), ru(E, C, bound=F_ ** -0.5)]
+
+
+def combine_phase(dev, tfm):
+    """`moe_ffn_combine` and `moe_ffn_combine_bwd` against their plain versions at
+    the five MoE blocks of the 64x64 step at batch 64, for E_local = 2 (expert
+    parallelism 2, phase 9's layout) and 1 (expert parallelism 4)."""
+    fwd_rows, bwd_rows = [], []
+    names = ("dx", "dprobs", "dw1", "db1", "dw2", "db2")
+    for E in (2, 1):
+        for res, C in TRAIN_MOE:
+            T, F_ = B_TRAIN * res * res, 4 * C
+            errs = {}
+            for onehot in (False, True):
+                args = combine_args(dev, E, C, T, onehot, seed=200 + res + 10 * E + onehot)
+                out = tfm.moe_ffn_combine(*args)
+                again = tfm.moe_ffn_combine(*args)
+                want = tfm.moe_ffn_combine_reference(*args)
+                torch.cuda.synchronize()
+                label = f"combine fwd E={E} res {res} {'one-hot' if onehot else 'soft'}"
+                check(torch.equal(out, again), f"{label}: two calls differ")
+                err = (out.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                # As moe_compare: the final bf16 rounding of out and of p*h.
+                tol = 4 * 2.0 ** -8 * scale
+                check(err <= tol, f"{label}: max |out - plain| {err} > {tol} (max {scale})")
+                errs["onehot" if onehot else "soft"] = [err, scale]
+                if onehot:
+                    hard_ms = time_ms(lambda: tfm.moe_ffn_combine(*args), 10)
+                    selections = float((args[1] > 0).sum().item())
+                else:
+                    soft_args = args
+                del out, again, want
+            x, probs, w1, b1, w2, b2 = soft_args
+            ms = time_ms(lambda: tfm.moe_ffn_combine(*soft_args), 10)
+            plain_ms = time_ms(lambda: tfm.moe_ffn_combine_reference(*soft_args), 3)
+            w_bytes = 2.0 * E * C * F_ * 2 + (E * F_ + E * C) * 4
+            # x and probs read, the weights read once, out written (soft routing:
+            # every token weighs every local expert)
+            flops = 4.0 * T * C * F_ * E
+            nbytes = T * C * 2 + T * E * 4 + w_bytes + T * C * 2
+            b_ms, b_by = bound_ms(flops, nbytes)
+            fwd_rows.append(dict(E_local=E, res=res, T=T, C=C, F=F_, max_abs_err=max(
+                e for e, _ in errs.values()), errs=errs, ms=ms, onehot_ms=hard_ms,
+                onehot_selections=selections, plain_ms=plain_ms, flops=flops, bytes=nbytes,
+                bound_ms=b_ms, bound_by=b_by, plan=list(tfm.kernel_plan(T, C, F_, E, dev))))
+            print("moe_combine_fwd " + json.dumps(fwd_rows[-1]), flush=True)
+
+            g = torch.Generator(device=dev).manual_seed(300 + res + E)
+            dout = (torch.randn((T, C), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+            got = tfm.moe_ffn_combine_bwd(*soft_args, dout)
+            again = tfm.moe_ffn_combine_bwd(*soft_args, dout)
+            want = tfm.moe_ffn_combine_bwd_reference(*soft_args, dout)
+            torch.cuda.synchronize()
+            berrs = {}
+            for name, a, b, c in zip(names, got, again, want):
+                check(torch.equal(a, b), f"combine bwd E={E} res {res}: two calls give "
+                                         f"different {name}")
+                err = (a.float() - c.float()).abs().max().item()
+                ref = c.float().abs().max().item()
+                # As moe_bwd_phase: dz and p*h rounded to bf16 before sums over
+                # up to 262k tokens or 4096 hidden units.
+                check(err <= 2e-2 * ref, f"combine bwd E={E} res {res}: max |{name} - plain| "
+                                         f"{err} > {2e-2 * ref}")
+                berrs[name] = [err, ref]
+            del got, again, want
+            ms = time_ms(lambda: tfm.moe_ffn_combine_bwd(*soft_args, dout), 5)
+            plain_ms = time_ms(lambda: tfm.moe_ffn_combine_bwd_reference(*soft_args, dout), 3)
+            flops = 10.0 * T * C * F_ * E
+            # x, dout (bf16), probs and the weights read; dx, dprobs and the
+            # weight and bias gradients written (fp32)
+            nbytes = (2.0 * T * C * 2 + T * E * 4 + w_bytes + T * C * 4 + T * E * 4
+                      + 2 * E * C * F_ * 4 + (E * F_ + E * C) * 4)
+            b_ms, b_by = bound_ms(flops, nbytes)
+            bwd_rows.append(dict(E_local=E, res=res, T=T, C=C, F=F_, max_abs_err=max(
+                e for e, _ in berrs.values()), max_rel_err=max(
+                e / max(r, 1e-30) for e, r in berrs.values()), errs=berrs, ms=ms,
+                plain_ms=plain_ms, flops=flops, bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+                plan=list(tfm.bwd_kernel_plan(T, C, F_, E, dev))))
+            print("moe_combine_bwd " + json.dumps(bwd_rows[-1]), flush=True)
+            del soft_args, args, dout
+            torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+# --- phase 9: the distributed path, two ranks sharing the card over gloo -----------------
+
+DIST_RANKS = 2  # data 1 x expert 2
+DIST_STEP_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd": 3,
+                      "fused_moe_fwd": 0, "fused_moe_bwd": 0,
+                      "moe_combine_fwd": 10, "moe_combine_bwd": 5}
+DIST_EVAL_LAUNCHES = {"flash_attention_fwd": 3, "flash_attention_bwd": 0,
+                      "fused_moe_fwd": 0, "fused_moe_bwd": 0,
+                      "moe_combine_fwd": 5, "moe_combine_bwd": 0}
+DIST_TIMEOUT_S = 600
+
+
+def dist_cfg():
+    from moegan_tpu_torch.config import MeshConfig, TrainConfig
+
+    return TrainConfig(num_epochs=1, seed=SEED + 8, log_interval=1,
+                       mesh=MeshConfig(expert_parallelism=DIST_RANKS))
+
+
+def flat_moments(state):
+    """{"generator" | "discriminator": Adam's first moment of the whole parameters,
+    flat fp32 on the CPU, in `named_parameters` order}."""
+    from moegan_tpu_torch.parallel.sharding import gather_full
+
+    out = {}
+    for net, module, opt in (("generator", state.generator, state.g_opt),
+                             ("discriminator", state.discriminator, state.d_opt)):
+        sizes = [p.numel() for p in module.parameters()]
+        named = {n: v.view_as(p) for v, (n, p) in
+                 zip(opt.mu.split(sizes), module.named_parameters())}
+        if state.mesh is not None:
+            named = gather_full(named, state.mesh)
+        out[net] = torch.cat([v.reshape(-1).float().cpu() for v in named.values()])
+    return out
+
+
+def dist_rank(rank, port, out_dir, batch, noise):
+    """One rank of phase 9 (run in a spawned process on cuda:0, gloo)."""
+    import datetime
+
+    sys.path.insert(0, ROOT)
+    result = {}
+    try:
+        import torch.distributed as dist
+
+        import moegan_tpu_torch.train.loop as loop_mod
+        from moegan_tpu_torch.data.datasets import synthetic_dataset
+        from moegan_tpu_torch.losses.gan import kl_annealing_factor, temperature_factor
+        from moegan_tpu_torch.ops import flash_attention as tfa
+        from moegan_tpu_torch.ops import fused_moe as tfm
+        from moegan_tpu_torch.parallel.api import setup_distributed_training
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=DIST_RANKS, timeout=datetime.timedelta(seconds=300))
+        cfg = dist_cfg()
+        sched = {"temperature_factor": temperature_factor(0),
+                 "effective_kl_weight": cfg.loss.kl_weight
+                 * kl_annealing_factor(0, cfg.loss.kl_annealing_epochs)}
+
+        # (a) one step of the distributed step on a fixed global batch and noise
+        mesh, state, step = setup_distributed_training(cfg, device="cuda:0")
+        result["mesh"] = [list(mesh.shape), mesh.data_index, mesh.expert_index]
+        torch.cuda.synchronize()
+        reset_counts(tfa, tfm)
+        state, metrics = step(state, batch, sched, noise=noise)
+        torch.cuda.synchronize()
+        result["step_launches"] = launch_counts(tfa, tfm)
+        result["step_metrics"] = {k: v.tolist() for k, v in metrics.items()}
+        result["moments"] = flat_moments(state)
+        del state, step
+        torch.cuda.empty_cache()
+
+        # (b) train_aurora_gan: one epoch of 3 steps at global batch 64, one
+        # validation batch. The step and eval functions are wrapped to count
+        # each call's launches on its own and time it (CUDA events).
+        calls = {"train": [], "eval": []}
+
+        def counted(kind, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                reset_counts(tfa, tfm)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                torch.cuda.synchronize()
+                calls[kind].append({"ms": start.elapsed_time(end),
+                                    "launches": launch_counts(tfa, tfm)})
+                return out
+            return run
+
+        def setup(*a, **kw):
+            m, st, fn = setup_distributed_training(*a, **kw)
+            return m, st, counted("train", fn)
+
+        loop_mod.setup_distributed_training = setup
+        make_eval = loop_mod.make_eval_step
+        loop_mod.make_eval_step = lambda c: counted("eval", make_eval(c))
+        train = synthetic_dataset(3 * cfg.batch_size, 64, seed=SEED + 9)
+        val = synthetic_dataset(cfg.batch_size, 64, seed=SEED + 10)
+        seen = []
+        state = loop_mod.train_aurora_gan(
+            train, val, cfg=cfg, device="cuda:0",
+            metric_callback=lambda epoch, m: seen.append(dict(m)) is None)
+        torch.cuda.synchronize()
+        result["loop_calls"] = calls
+        result["loop_val"] = seen
+        result["loop_steps"] = state.step
+        result["loop_params_finite"] = all(
+            bool(torch.isfinite(p).all()) for p in list(state.generator.parameters())
+            + list(state.discriminator.parameters()))
+        result["loop_opt"] = [[o.count.item(), o.notfinite_count.item()]
+                              for o in (state.g_opt, state.d_opt)]
+        result["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        import traceback
+
+        result["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def distributed_phase(smi):
+    """Phase 9: two ranks (data 1 x expert 2) on cuda:0 over gloo, spawned after every
+    kernel was built in this process. (a) one distributed step against the
+    single-process step on the same card, weights, batch and noise; (b)
+    train_aurora_gan for one epoch of 3 steps and one validation batch."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from moegan_tpu_torch.train.state import create_train_state
+    from moegan_tpu_torch.train.step import draw_noise, make_train_step
+
+    cfg = dist_cfg()
+    batch = synthetic_batch(cfg.batch_size, 64, SEED + 11, "cpu")
+    state = create_train_state(cfg, device="cuda", seed=cfg.seed)
+    noise = draw_noise(state.generator, cfg.batch_size, torch.Generator().manual_seed(SEED + 12),
+                       device="cpu")
+    sched = epoch0_schedule(cfg)
+    state, single_metrics = make_train_step(cfg)(state, batch, sched, noise=noise)
+    torch.cuda.synchronize()
+    single_moments = flat_moments(state)
+    single_metrics = {k: v.tolist() for k, v in single_metrics.items()}
+    del state
+    torch.cuda.empty_cache()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="moegan_smoke_dist_")
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dist_rank, args=(r, port, out_dir, batch, noise))
+             for r in range(DIST_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    wall_s = time.perf_counter() - t0
+    check(not hung, f"distributed: ranks {hung} still ran after {DIST_TIMEOUT_S} s")
+    results = []
+    for r, p in enumerate(procs):
+        path = os.path.join(out_dir, f"rank{r}.pt")
+        res = torch.load(path, weights_only=False) if os.path.exists(path) else {}
+        check("error" not in res, f"distributed rank {r} failed:\n{res.get('error')}")
+        check(p.exitcode == 0 and res, f"distributed rank {r}: exit code {p.exitcode}")
+        results.append(res)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    report = {"layout": "data 1 x expert 2", "wall_s": wall_s, "card": smi,
+              "note": "two ranks sharing one card over gloo: not a multi-GPU number"}
+    losses = ("d_loss", "r1_loss", "d_total", "g_loss", "g_total", "kl_loss", "balance_loss")
+    for r, res in enumerate(results):
+        check(res["mesh"] == [[1, DIST_RANKS], 0, r], f"distributed rank {r}: mesh {res['mesh']}")
+        check(res["step_launches"] == DIST_STEP_LAUNCHES,
+              f"distributed rank {r}: step launches {res['step_launches']}")
+        for k in losses:
+            a, b = res["step_metrics"][k], single_metrics[k]
+            # The sharded path routes through the router in fp32 on x as it is;
+            # the fused kernel's router works from bf16 tokens and weights.
+            # bf16 activations over two generator passes and four D passes.
+            lim = 0.02 * abs(b) + (1e-4 if k == "balance_loss" else 1e-6)
+            check(abs(a - b) <= lim, f"distributed rank {r}: {k} {a} against single {b}")
+        cos = {net: cosine(res["moments"][net], single_moments[net])
+               for net in ("generator", "discriminator")}
+        for net, c in cos.items():
+            check(c >= 0.99, f"distributed rank {r}: gradient cosine of {net} {c} < 0.99")
+        calls = res["loop_calls"]
+        check(len(calls["train"]) == 3 and len(calls["eval"]) == 1,
+              f"distributed rank {r}: {len(calls['train'])} steps, {len(calls['eval'])} evals")
+        for i, c in enumerate(calls["train"]):
+            check(c["launches"] == DIST_STEP_LAUNCHES,
+                  f"distributed rank {r} loop step {i + 1}: launches {c['launches']}")
+        check(calls["eval"][0]["launches"] == DIST_EVAL_LAUNCHES,
+              f"distributed rank {r} eval: launches {calls['eval'][0]['launches']}")
+        check(res["loop_steps"] == 3 and res["loop_params_finite"],
+              f"distributed rank {r}: {res['loop_steps']} steps, params finite "
+              f"{res['loop_params_finite']}")
+        check(res["loop_opt"] == [[3, 0], [3, 0]],
+              f"distributed rank {r}: optimizer counts {res['loop_opt']}")
+        check(len(res["loop_val"]) == 1 and all(np.isfinite(v) for v in res["loop_val"][0].values()),
+              f"distributed rank {r}: validation {res['loop_val']}")
+        report[f"rank{r}"] = {
+            "step_vs_single": {k: [res["step_metrics"][k], single_metrics[k]] for k in losses},
+            "grad_cosine": cos, "step_launches": res["step_launches"],
+            "loop_step_ms": [c["ms"] for c in calls["train"]],
+            "loop_eval_ms": calls["eval"][0]["ms"],
+            "loop_launches_per_step": [c["launches"] for c in calls["train"]],
+            "eval_launches": calls["eval"][0]["launches"], "val": res["loop_val"][0],
+            "peak_mem_gib": res["peak_mem_gib"]}
+    step_ms = results[0]["loop_calls"]["train"]
+    med = float(np.median([c["ms"] for c in step_ms]))
+    report["median_step_ms_rank0"] = med
+    print(f"distributed (2 ranks sharing one card over gloo, not a multi-GPU number): "
+          f"{med:.1f} ms/step (median of 3, rank 0) on {smi}", flush=True)
+    print("distributed " + json.dumps(report), flush=True)
+    # the main path's launches: rank 0's loop, 3 steps and the validation batch
+    launches = {k: sum(c["launches"][k] for c in step_ms) + results[0]["loop_calls"]["eval"][0][
+        "launches"][k] for k in DIST_STEP_LAUNCHES}
+    return launches, report
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU")
@@ -780,6 +1139,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches, _ = train_phase(tfa, tfm, smi)
     train_vs_cpu_phase()
+    torch.cuda.empty_cache()
+    combine_fwd_rows, combine_bwd_rows = combine_phase(dev, tfm)
+    torch.cuda.empty_cache()
+    dist_launches, _ = distributed_phase(smi)
+    for name in ("moe_combine_fwd", "moe_combine_bwd"):
+        launches[name] = dist_launches[name]
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -796,12 +1161,22 @@ def main() -> None:
          "moegan_tpu/ops/flash_attention.py:521", True, "training, batch 64"),
         ("fused_moe_bwd", moe_bwd_rows, "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
          "moegan_tpu/ops/fused_moe.py:774", False, "training, batch 64"),
+        ("moe_combine_fwd", [r for r in combine_fwd_rows if r["E_local"] == 2],
+         "moegan_tpu_torch/ops/csrc/fused_moe.cu",
+         "moegan_tpu/ops/fused_moe.py:1046; moegan_tpu/ops/fused_moe.py:1224", False,
+         "training, batch 64, E_local 2 (expert parallelism 2), soft routing"),
+        ("moe_combine_bwd", [r for r in combine_bwd_rows if r["E_local"] == 2],
+         "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
+         "moegan_tpu/ops/fused_moe.py:1075; moegan_tpu/ops/fused_moe.py:1261", False,
+         "training, batch 64, E_local 2 (expert parallelism 2)"),
     ):
         ops_ms = sum(r["flops"] for r in rows) / PEAK_BF16_FLOPS * 1e3
         bytes_ms = sum(r["bytes"] for r in rows) / PEAK_BYTES * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            # launches: the 5 training steps (every kernel runs on that path)
+            # launches: the 5 single-device training steps (phase 6), or, for
+            # the combine kernels, rank 0's 3 distributed steps and its
+            # validation batch (phase 9)
             "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
             # times and bounds: the sum over the shapes of one generator call
             # (forwards) or one training step's backward (backwards)

@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of moegan_tpu, for an NVIDIA H100.
 
 `moegan_tpu/` (JAX, Pallas on a TPU) is the reference; this package is its
-counterpart, slice by slice. This slice holds the 64x64 serving path: the
-generator's eval forward (`models/generator.py`), the sampler and the HTTP
-serving stack (`infer/`), and the two hand-written CUDA kernels it runs
-(`ops/flash_attention.py`, `ops/fused_moe.py`, sources in `ops/csrc/`).
+counterpart, slice by slice: the 64x64 serving path (`infer/`), the
+training step (`train/step.py`, `train/state.py`), and distributed
+training through the loop (`train/loop.py`, `parallel/`, `data/`), with
+the hand-written CUDA kernels they run (`ops/flash_attention.py`,
+`ops/fused_moe.py`, sources in `ops/csrc/`).
 
 Nothing here imports JAX or the JAX package. Entry points run on the card
 (`device="cuda"`) unless the caller asks for the CPU; on a CPU tensor each

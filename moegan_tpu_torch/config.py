@@ -1,9 +1,9 @@
 """Configuration (counterpart of moegan_tpu/config.py).
 
-`GeneratorConfig`, `DiscriminatorConfig`, `LossConfig` and `TrainConfig`
-keep the JAX package's fields and defaults. The TPU-only fields
-(`use_pallas`, `remat_blocks`) and `MeshConfig` are left out; `from_dict`
-skips them, and any other unknown key, in a JAX-written JSON.
+`GeneratorConfig`, `DiscriminatorConfig`, `LossConfig`, `MeshConfig` and
+`TrainConfig` keep the JAX package's fields and defaults. The TPU-only
+fields (`use_pallas`, `remat_blocks`) are left out; `from_dict` skips them,
+and any other unknown key, in a JAX-written JSON.
 """
 
 from __future__ import annotations
@@ -122,9 +122,20 @@ class LossConfig(_JsonMixin):
 
 
 @dataclass(frozen=True)
+class MeshConfig(_JsonMixin):
+    """The (data x expert) layout of the ranks (moegan_tpu/config.py:194-201).
+    expert_parallelism 1 is pure data parallelism; a value <= 0 means the
+    largest size that divides both the world size and num_experts."""
+
+    data_axis: str = "data"
+    expert_axis: str = "expert"
+    expert_parallelism: int = 1
+
+
+@dataclass(frozen=True)
 class TrainConfig(_JsonMixin):
     """Training hyperparameters (moegan_tpu/config.py:204-249), 64x64 at batch 64.
-    `truncation_psi` and `log_interval` (the JAX training loop's) are left out."""
+    `truncation_psi` (never used in training) is left out."""
 
     num_epochs: int = 50
     batch_size: int = 64
@@ -137,18 +148,20 @@ class TrainConfig(_JsonMixin):
     grad_clip_g: float = 0.8
     grad_clip_d: float = 0.7
     gradient_accumulation_steps: int = 1
+    log_interval: int = 10
     seed: int = 0
     steps_per_epoch: int | None = None
     shared_fake: bool = False
     loss: LossConfig = field(default_factory=LossConfig)
     generator: GeneratorConfig = field(default_factory=GeneratorConfig)
     discriminator: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "TrainConfig":
         d = dict(d)
         for key, sub in (("loss", LossConfig), ("generator", GeneratorConfig),
-                         ("discriminator", DiscriminatorConfig)):
+                         ("discriminator", DiscriminatorConfig), ("mesh", MeshConfig)):
             if isinstance(d.get(key), Mapping):
                 d[key] = sub.from_dict(d[key])
         return _from_dict(cls, d)

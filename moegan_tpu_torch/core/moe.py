@@ -10,6 +10,15 @@ in the compute dtype, cw[:h] in fp32. Eval routes hard (top-1) through
 backward is the MoE backward kernel, and adds the router's KL. The kernels
 mask ragged token tiles themselves, so the JAX glue's padding to 256 is not
 needed.
+
+Under an ambient mesh (`parallel.mesh.maybe_mesh_context`) whose expert
+axis is larger than 1, `_fused_sharded` takes the place of the fused path,
+as in the JAX module (moe.py:110-182): the router runs in full on every
+rank (`BayesianRouter.forward`, fp32), each rank computes the combine of
+its own experts' FFNs with its columns of the probs (`moe_ffn_combine`,
+`MoECombineFunction` in training), and the partial sums are added over the
+expert group. The module then holds only its rank's slice of w1, b1, w2
+and b2 (`parallel.sharding.shard_module_`).
 """
 
 from __future__ import annotations
@@ -19,7 +28,14 @@ from torch import nn
 
 from moegan_tpu_torch.core import inits
 from moegan_tpu_torch.core.router import BayesianRouter
-from moegan_tpu_torch.ops.fused_moe import FusedMoEFunction, fused_moe_ffn
+from moegan_tpu_torch.ops.fused_moe import (
+    FusedMoEFunction,
+    MoECombineFunction,
+    fused_moe_ffn,
+    moe_ffn_combine,
+)
+from moegan_tpu_torch.parallel.mesh import current_mesh
+from moegan_tpu_torch.parallel.sharding import expert_combine, expert_enter, expert_slice
 
 
 class SparseMoE(nn.Module):
@@ -46,6 +62,11 @@ class SparseMoE(nn.Module):
         """
         if training and eps is None:
             raise ValueError("a training forward needs the router noise eps")
+        mesh = self._expert_mesh()
+        if mesh is not None:
+            out, probs = self._fused_sharded(x, w, training, annealing_factor, eps, mesh)
+            kl = self.router.kl_divergence() if training else torch.zeros((), device=x.device)
+            return out, kl, probs
         B, T, C = x.shape
         E, h, cd = self.num_experts, self.router.hidden, self.compute_dtype
         fw, tw, cw = self.router.sample_weights(training, eps)
@@ -63,3 +84,30 @@ class SparseMoE(nn.Module):
             out, probs = fused_moe_ffn(*args, hard=True)
             kl = torch.zeros((), device=x.device)
         return out.reshape(B, T, C).to(x.dtype), kl, probs.reshape(B, T, E)
+
+    def _expert_mesh(self):
+        """The ambient mesh when it has an expert axis larger than 1 that divides E."""
+        m = current_mesh()
+        if m is not None and m.expert_size > 1 and self.num_experts % m.expert_size == 0:
+            return m
+        return None
+
+    def _fused_sharded(self, x, w, training, annealing_factor, eps, mesh):
+        """Expert-parallel path: the full router on every rank, this rank's
+        experts' FFN and combine in the combine kernel, the sum over the
+        expert group. Returns (out [B, T, C], probs [B, T, E]) with the full probs."""
+        B, T, C = x.shape
+        E, cd = self.num_experts, self.compute_dtype
+        local = expert_slice(mesh, E)
+        if self.w1.shape[0] != local.stop - local.start:
+            raise ValueError(f"the MoE holds {self.w1.shape[0]} experts; this rank's slice of "
+                             f"{E} over {mesh.expert_size} ranks is {local}")
+        probs, _ = self.router(x, w, sampling=training, hard=not training,
+                               annealing_factor=annealing_factor, eps=eps)
+        tokens = expert_enter(x.reshape(B * T, C).to(cd), mesh)
+        pt = expert_enter(probs.reshape(B * T, E).float(), mesh)
+        args = (tokens.contiguous(), pt[:, local].contiguous(), self.w1.to(cd), self.b1.float(),
+                self.w2.to(cd), self.b2.float())
+        part = MoECombineFunction.apply(*args) if training else moe_ffn_combine(*args)
+        out = expert_combine(part, mesh)
+        return out.reshape(B, T, C).to(x.dtype), probs

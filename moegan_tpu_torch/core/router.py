@@ -2,6 +2,9 @@
 
 The parameters are the JAX package's: feature/text/combined mu and rho and
 the temperature. Serving uses the posterior means and hard top-1 routing.
+`forward` is the whole JAX router (the expert-parallel MoE path routes
+through it); the fused kernels take the weights from `sample_weights` and
+compute the routing themselves.
 Training samples the three weight matrices by reparameterisation,
 mu + softplus(rho) * eps under the JAX package's clamps, with eps passed in
 or drawn from an explicit `torch.Generator`, and regularises the posterior
@@ -79,18 +82,24 @@ class BayesianRouter(nn.Module):
         """1 / clip(temperature * annealing, 0.5, 5) as a 1-element fp32 tensor."""
         return 1.0 / torch.clamp(self.temperature.float() * annealing_factor, 0.5, 5.0)
 
-    def forward(self, feature: torch.Tensor, text: torch.Tensor, hard: bool = True):
-        """Eval routing. feature [B, T, C], text [B, text_dim] -> (probs, logits) [B, T, E].
+    def forward(self, feature: torch.Tensor, text: torch.Tensor, sampling: bool = False,
+                hard: bool = False, annealing_factor: float | torch.Tensor = 1.0, eps=None):
+        """feature [B, T, C], text [B, text_dim] -> (probs, logits) [B, T, E], fp32
+        (router.py:84-123).
 
-        `hard` is argmax one-hot, as the JAX router's (a tie goes to the
-        first maximum; the fused path splits ties instead).
+        `sampling` reparameterises the weights from `eps` (see `sample_weights`),
+        else takes the posterior means. The logits are divided by
+        clip(temperature * annealing, 0.5, 5) and clipped to +-20. `hard` is
+        the argmax one-hot: a tie goes to the first maximum (the fused
+        kernel's router splits ties instead).
         """
-        fw, tw, cw = self.mean_weights()
+        fw, tw, cw = self.sample_weights(sampling, eps)
         feature = torch.nan_to_num(feature.float(), nan=0.0, posinf=1.0, neginf=-1.0)
         text = torch.nan_to_num(text.float(), nan=0.0, posinf=1.0, neginf=-1.0)
         h = self.hidden
         logits = (feature @ fw) @ cw[:h] + ((text @ tw) @ cw[h:])[:, None, :]
-        logits = torch.clamp(logits * self.inv_temperature(), -20.0, 20.0)
+        eff_temp = torch.clamp(self.temperature[0].float() * annealing_factor, 0.5, 5.0)
+        logits = torch.clamp(logits / eff_temp, -20.0, 20.0)
         probs = torch.softmax(logits, dim=-1)
         probs = torch.clamp(probs, 1e-6, 1.0)
         probs = probs / probs.sum(dim=-1, keepdim=True)

@@ -4,12 +4,19 @@ moegan_tpu/losses/gan.py), for the default configuration.
 The nonsaturating GAN loss and the CV balance of the last block's routing
 are ported; the hinge loss, the switch balance and the all-block balance
 are not (`make_train_step` refuses them).
+
+Under data parallelism (`mesh` given) the balance and the routing
+statistics are taken over the global batch, as the JAX step takes them
+over the whole sharded batch: the per-expert sums and the token count are
+summed over the data group first.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from moegan_tpu_torch.parallel.sharding import data_sum
 
 
 def generator_loss(fake_pred: torch.Tensor) -> torch.Tensor:
@@ -23,19 +30,20 @@ def discriminator_loss(real_pred, fake_pred, mismatched_pred) -> torch.Tensor:
             + F.softplus(mismatched_pred).mean())
 
 
-def cv_balance(probs: torch.Tensor) -> torch.Tensor:
+def cv_balance(probs: torch.Tensor, mesh=None) -> torch.Tensor:
     """Coefficient-of-variation load balance of one block's routing [..., E]:
     unbiased std, times E, clamped to [0, 10], NaN -> 0 (gan.py:79-97)."""
     p = probs.float().reshape(-1, probs.shape[-1])
     eps = 1e-6
-    fraction = (p.sum(dim=0) + eps) / p.shape[0]
+    n = p.shape[0] * (1 if mesh is None else mesh.data_size)
+    fraction = (data_sum(p.sum(dim=0), mesh) + eps) / n
     cv = fraction.std(unbiased=True) / (fraction.mean() + eps)
     return torch.nan_to_num(torch.clamp(p.shape[-1] * cv, 0.0, 10.0), nan=0.0)
 
 
-def moe_balance_loss(routing_probs, balance_weight: float = 0.01) -> torch.Tensor:
+def moe_balance_loss(routing_probs, balance_weight: float = 0.01, mesh=None) -> torch.Tensor:
     """balance_weight * CV balance of the last block's routing."""
-    return balance_weight * cv_balance(routing_probs[-1])
+    return balance_weight * cv_balance(routing_probs[-1], mesh)
 
 
 def kl_annealing_factor(epoch: float, kl_annealing_epochs: int) -> float:
@@ -49,15 +57,25 @@ def temperature_factor(epoch: float) -> float:
     return max(1.0, 3.0 - 0.1 * epoch)
 
 
-def expert_utilization_per_block(routing_probs) -> torch.Tensor:
+@torch.no_grad()
+def _global_mean(rows, mesh) -> torch.Tensor:
+    """[num_blocks, E] column means of per-block [N, E] rows over the global batch."""
+    if mesh is None or mesh.data_size == 1:
+        return torch.stack([r.mean(dim=0) for r in rows])
+    sums = data_sum(torch.stack([r.sum(dim=0) for r in rows]), mesh)
+    return sums / torch.tensor([float(r.shape[0] * mesh.data_size) for r in rows],
+                               device=sums.device)[:, None]
+
+
+def expert_utilization_per_block(routing_probs, mesh=None) -> torch.Tensor:
     """[num_blocks, E] mean routing probability of each expert, per block."""
-    return torch.stack([p.float().reshape(-1, p.shape[-1]).mean(dim=0) for p in routing_probs])
+    return _global_mean([p.float().reshape(-1, p.shape[-1]) for p in routing_probs], mesh)
 
 
-def expert_top1_per_block(routing_probs) -> torch.Tensor:
+def expert_top1_per_block(routing_probs, mesh=None) -> torch.Tensor:
     """[num_blocks, E] share of tokens whose top-1 expert is each expert, per block."""
-    out = []
+    rows = []
     for p in routing_probs:
         p2 = p.float().reshape(-1, p.shape[-1])
-        out.append(F.one_hot(p2.argmax(dim=-1), p2.shape[-1]).float().mean(dim=0))
-    return torch.stack(out)
+        rows.append(F.one_hot(p2.argmax(dim=-1), p2.shape[-1]).float())
+    return _global_mean(rows, mesh)

@@ -5,7 +5,10 @@ plain C interface: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`. The libraries go to `moegan_tpu_torch/_build/` (listed in
 `.gitignore`), named by a hash of the source, so an edited source is built
 anew and an unchanged one is reused. All missing libraries are built at
-once, one nvcc process per source, started together.
+once, one nvcc process per source, started together. Each library is
+written under a temporary name of its process and renamed into place, so
+processes that build at once never load a half-written file; a program
+that spawns ranks builds in the parent first (`build_all`).
 
 Nothing here runs at import time: the CPU tests import every module, and
 nvcc is needed only when a kernel is first launched on the card.

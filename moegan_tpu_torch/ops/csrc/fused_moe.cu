@@ -14,6 +14,18 @@
 // The rounding of p_e*h to bf16 before the second product is v2's
 // (fused_moe.py:759); under hard routing it is exact.
 //
+// The same kernel, instantiated without the router (kRouter = false), is
+// the expert-parallel combine moegan_moe_combine_fwd. It replaces the TPU
+// kernels ::_combine_kernel (v1) and ::_combine_kernel_v2, launched by
+// moe_ffn_combine under expert parallelism:
+//
+//   out = sum_e bf16(p_e * bf16(gelu_erf(x @ W1_e + b1_e))) @ W2_e + probs @ b2
+//
+// over the E experts it is given (a rank's local shard), with probs [T, E]
+// read from memory (soft, or one-hot at eval). It writes the rank's
+// partial sum in bf16; the caller adds the ranks' partials. Experts that
+// no token of a tile weighs are skipped, as under hard routing above.
+//
 // Design: block (i, s) of the grid takes token tile i (BT tokens) and the
 // s-th of `splits` contiguous ranges of the (expert, F-chunk) loop, so that
 // a layer with few token tiles (res 4: T/BT = 8 at batch 16) still fills the
@@ -153,10 +165,15 @@ __device__ inline void stage_rows(bf16* dst, int ldd, const bf16* src, int rows,
   }
 }
 
+// kRouter: compute the routing from the router inputs (fused_moe_fwd). Without
+// it the routing probabilities are read from probs_in [T, E] and the router
+// arguments are unused (moe_combine_fwd); the rest of the kernel is shared.
+template <bool kRouter>
 __global__ void __launch_bounds__(NTHREADS)
 fused_moe_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
                      const float* __restrict__ cw, const float* __restrict__ tl,
-                     const float* __restrict__ inv_temp, const bf16* __restrict__ w1,
+                     const float* __restrict__ inv_temp, const float* __restrict__ probs_in,
+                     const bf16* __restrict__ w1,
                      const float* __restrict__ b1, const bf16* __restrict__ w2,
                      const float* __restrict__ b2, bf16* __restrict__ out,
                      float* __restrict__ probs, float* __restrict__ ws, int T, int C, int Hd,
@@ -181,66 +198,77 @@ fused_moe_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
   stage_rows(sX, L.ldx, x + (long long)t0 * C, BT, rows, C);
   for (int i = tid; i < BT * L.ldacc; i += NTHREADS) sAcc[i] = 0.f;
   for (int i = tid; i < BT * E; i += NTHREADS) sP[i] = 0.f;
-  if (tid < E) s_used[tid] = hard ? 0 : 1;
+  if (tid < E) s_used[tid] = (kRouter && !hard) ? 1 : 0;
   cp_async_wait_all();
   __syncthreads();
 
-  // Router logits: (x @ fw) @ cw_f, FC hidden columns at a time; the
-  // [BT, FC] slice of x @ fw goes through the W1 staging buffer and sZ.
-  for (int j0 = 0; j0 < Hd; j0 += FC) {
-    stage_cols(sW1, L.ldw1, fw, C, Hd, j0, FC, Hd);
-    cp_async_wait_all();
-    __syncthreads();
-    mma_tiles(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C, false);
-    __syncthreads();
-    for (int i = tid; i < BT * E; i += NTHREADS) {
-      const int r = i / E, e = i % E;
-      float s = 0.f;
-      for (int jj = 0; jj < FC && j0 + jj < Hd; ++jj) s = fmaf(sZ[r * L.ldz + jj], cw[(j0 + jj) * E + e], s);
-      sP[i] += s;
+  if constexpr (!kRouter) {
+    // The given probabilities; an expert that no token of the tile weighs
+    // (p exactly 0, as under one-hot routing) is skipped below.
+    for (int i = tid; i < rows * E; i += NTHREADS) {
+      const float p = probs_in[(long long)t0 * E + i];
+      sP[i] = p;
+      if (p != 0.f) s_used[i % E] = 1;
     }
     __syncthreads();
-  }
-
-  // Routing probabilities, one thread per token; under hard routing, mark
-  // the experts that some token of the tile selected.
-  for (int r = tid; r < BT; r += NTHREADS) {
-    const float it = inv_temp[0];
-    float p[MAX_E];
-    float mx = -INFINITY;
-    for (int e = 0; e < E; ++e) {
-      const float lg = (sP[r * E + e] + (r < rows ? tl[(long long)(t0 + r) * E + e] : 0.f)) * it;
-      p[e] = fminf(fmaxf(lg, -20.f), 20.f);
-      mx = fmaxf(mx, p[e]);
-    }
-    float sum = 0.f;
-    for (int e = 0; e < E; ++e) {
-      p[e] = expf(p[e] - mx);
-      sum += p[e];
-    }
-    float sum2 = 0.f;
-    for (int e = 0; e < E; ++e) {
-      p[e] = fminf(fmaxf(p[e] / sum, 1e-6f), 1.f);
-      sum2 += p[e];
-    }
-    float pmax = 0.f;
-    for (int e = 0; e < E; ++e) {
-      p[e] = p[e] / sum2;
-      pmax = fmaxf(pmax, p[e]);
-    }
-    if (hard) {
-      float n = 0.f;
-      for (int e = 0; e < E; ++e) n += (p[e] == pmax) ? 1.f : 0.f;
-      for (int e = 0; e < E; ++e) {
-        p[e] = (p[e] == pmax) ? 1.f / n : 0.f;
-        if (p[e] > 0.f && r < rows) s_used[e] = 1;
+  } else {
+    // Router logits: (x @ fw) @ cw_f, FC hidden columns at a time; the
+    // [BT, FC] slice of x @ fw goes through the W1 staging buffer and sZ.
+    for (int j0 = 0; j0 < Hd; j0 += FC) {
+      stage_cols(sW1, L.ldw1, fw, C, Hd, j0, FC, Hd);
+      cp_async_wait_all();
+      __syncthreads();
+      mma_tiles(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C, false);
+      __syncthreads();
+      for (int i = tid; i < BT * E; i += NTHREADS) {
+        const int r = i / E, e = i % E;
+        float s = 0.f;
+        for (int jj = 0; jj < FC && j0 + jj < Hd; ++jj) s = fmaf(sZ[r * L.ldz + jj], cw[(j0 + jj) * E + e], s);
+        sP[i] += s;
       }
+      __syncthreads();
     }
-    for (int e = 0; e < E; ++e) sP[r * E + e] = p[e];
-  }
-  __syncthreads();
-  if (split == 0) {
-    for (int i = tid; i < rows * E; i += NTHREADS) probs[(long long)t0 * E + i] = sP[i];
+
+    // Routing probabilities, one thread per token; under hard routing, mark
+    // the experts that some token of the tile selected.
+    for (int r = tid; r < BT; r += NTHREADS) {
+      const float it = inv_temp[0];
+      float p[MAX_E];
+      float mx = -INFINITY;
+      for (int e = 0; e < E; ++e) {
+        const float lg = (sP[r * E + e] + (r < rows ? tl[(long long)(t0 + r) * E + e] : 0.f)) * it;
+        p[e] = fminf(fmaxf(lg, -20.f), 20.f);
+        mx = fmaxf(mx, p[e]);
+      }
+      float sum = 0.f;
+      for (int e = 0; e < E; ++e) {
+        p[e] = expf(p[e] - mx);
+        sum += p[e];
+      }
+      float sum2 = 0.f;
+      for (int e = 0; e < E; ++e) {
+        p[e] = fminf(fmaxf(p[e] / sum, 1e-6f), 1.f);
+        sum2 += p[e];
+      }
+      float pmax = 0.f;
+      for (int e = 0; e < E; ++e) {
+        p[e] = p[e] / sum2;
+        pmax = fmaxf(pmax, p[e]);
+      }
+      if (hard) {
+        float n = 0.f;
+        for (int e = 0; e < E; ++e) n += (p[e] == pmax) ? 1.f : 0.f;
+        for (int e = 0; e < E; ++e) {
+          p[e] = (p[e] == pmax) ? 1.f / n : 0.f;
+          if (p[e] > 0.f && r < rows) s_used[e] = 1;
+        }
+      }
+      for (int e = 0; e < E; ++e) sP[r * E + e] = p[e];
+    }
+    __syncthreads();
+    if (split == 0) {
+      for (int i = tid; i < rows * E; i += NTHREADS) probs[(long long)t0 * E + i] = sP[i];
+    }
   }
 
   // This block's share of the (expert, F-chunk) loop.
@@ -347,28 +375,34 @@ int moegan_fused_moe_plan(int T, int C, int F, int E, int sms, int* bt, int* fc,
   return 1;
 }
 
-// ws: [splits, T, C] fp32 scratch, unused (may be null) when splits == 1.
-// Returns the cudaError_t of the launches (cudaErrorInvalidValue if no tile
-// fits or the arguments do not match the plan).
-int moegan_fused_moe_fwd(const void* x, const void* fw, const void* cw, const void* tl,
-                         const void* inv_temp, const void* w1, const void* b1, const void* w2,
-                         const void* b2, void* out, void* probs, void* ws, int T, int C, int Hd,
-                         int E, int F, int hard, int splits, void* stream) {
+}  // extern "C"
+
+namespace {
+
+// The launch of fused_moe_fwd_kernel<kRouter> and, when the (expert, F-chunk)
+// loop is split, of the split sum, which reads the routing from the kernel's
+// probs output (kRouter) or from probs_in.
+template <bool kRouter>
+int launch_fwd(const void* x, const void* fw, const void* cw, const void* tl,
+               const void* inv_temp, const void* probs_in, const void* w1, const void* b1,
+               const void* w2, const void* b2, void* out, void* probs, void* ws, int T, int C,
+               int Hd, int E, int F, int hard, int splits, void* stream) {
   int bt = 0, fc = 0;
   if (!pick_tiles(C, F, E, &bt, &fc) || splits < 1 || splits > 65535 ||
       (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout L(bt, fc, C, E);
-  cudaError_t err = cudaFuncSetAttribute(fused_moe_fwd_kernel,
+  cudaError_t err = cudaFuncSetAttribute(fused_moe_fwd_kernel<kRouter>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid((T + bt - 1) / bt, splits);
-  fused_moe_fwd_kernel<<<grid, NTHREADS, L.total, st>>>(
+  fused_moe_fwd_kernel<kRouter><<<grid, NTHREADS, L.total, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(fw), static_cast<const float*>(cw),
       static_cast<const float*>(tl), static_cast<const float*>(inv_temp),
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(probs_in), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<bf16*>(out), static_cast<float*>(probs),
       static_cast<float*>(ws), T, C, Hd, E, F, bt, fc, hard);
   err = cudaGetLastError();
@@ -376,9 +410,35 @@ int moegan_fused_moe_fwd(const void* x, const void* fw, const void* cw, const vo
   const long long n = (long long)T * C;
   const int blocks = static_cast<int>((n + 255) / 256 < 65535 ? (n + 255) / 256 : 65535);
   moe_split_sum_kernel<<<blocks, 256, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<const float*>(probs),
+      static_cast<const float*>(ws), static_cast<const float*>(kRouter ? probs : probs_in),
       static_cast<const float*>(b2), static_cast<bf16*>(out), T, C, E, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// ws: [splits, T, C] fp32 scratch, unused (may be null) when splits == 1.
+// Returns the cudaError_t of the launches (cudaErrorInvalidValue if no tile
+// fits or the arguments do not match the plan).
+int moegan_fused_moe_fwd(const void* x, const void* fw, const void* cw, const void* tl,
+                         const void* inv_temp, const void* w1, const void* b1, const void* w2,
+                         const void* b2, void* out, void* probs, void* ws, int T, int C, int Hd,
+                         int E, int F, int hard, int splits, void* stream) {
+  return launch_fwd<true>(x, fw, cw, tl, inv_temp, nullptr, w1, b1, w2, b2, out, probs, ws, T,
+                          C, Hd, E, F, hard, splits, stream);
+}
+
+// The expert-parallel combine (replaces _combine_kernel and _combine_kernel_v2):
+// out = bf16(sum_e probs[:, e] * FFN_e(x)) over the E experts given, with the
+// routing probs [T, E] fp32 read instead of computed. Same plan, scratch and
+// return code as moegan_fused_moe_fwd.
+int moegan_moe_combine_fwd(const void* x, const void* probs, const void* w1, const void* b1,
+                           const void* w2, const void* b2, void* out, void* ws, int T, int C,
+                           int E, int F, int splits, void* stream) {
+  return launch_fwd<false>(x, nullptr, nullptr, nullptr, nullptr, probs, w1, b1, w2, b2, out,
+                           nullptr, ws, T, C, 0, E, F, 0, splits, stream);
 }
 
 }  // extern "C"

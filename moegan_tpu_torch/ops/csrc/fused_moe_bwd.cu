@@ -17,6 +17,15 @@
 // The router chain's own backward (dx through the router, dfw, dcw, dtl,
 // dinv_temp) is left to the caller, as the TPU path leaves it to XLA.
 //
+// Instantiated without the router (kRouter = false), the same launches are
+// moegan_moe_combine_bwd, the backward of the expert-parallel combine. It
+// replaces the TPU kernels ::_combine_bwd_kernel (v1) and
+// ::_combine_bwd_kernel_v2: p is read from a given probs [T, E] (a rank's
+// local expert columns), so dp is the whole probs gradient and dx_ffn the
+// whole x gradient. The TPU path takes that kernel only where its weight-
+// gradient accumulators fit VMEM (_single_bwd_supported) and recomputes in
+// XLA elsewhere; here every block takes the kernel.
+//
 // The weight gradients reduce over all T tokens and dx / dp over all E*F
 // hidden units, so one grid cannot own both. Four launches, no atomics, and
 // every fp32 sum in a fixed order (two calls give the same bits):
@@ -168,10 +177,15 @@ __device__ inline void stage_rows(bf16* dst, int ldd, const bf16* src, int rows,
   }
 }
 
+// kRouter: recompute the soft routing from the router inputs (fused_moe_bwd).
+// Without it the routing probabilities are read from probs_in [T, E] and the
+// router arguments are unused (moe_combine_bwd); the rest is shared.
+template <bool kRouter>
 __global__ void __launch_bounds__(NTHREADS)
 moe_bwd_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
                      const float* __restrict__ cw, const float* __restrict__ tl,
-                     const float* __restrict__ inv_temp, const bf16* __restrict__ w1,
+                     const float* __restrict__ inv_temp, const float* __restrict__ probs_in,
+                     const bf16* __restrict__ w1,
                      const float* __restrict__ b1, const bf16* __restrict__ w2,
                      const bf16* __restrict__ dout, bf16* __restrict__ dz_out,
                      bf16* __restrict__ ph_out, float* __restrict__ ws_dx,
@@ -201,52 +215,54 @@ moe_bwd_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
   stage_rows(sDO, L.ldx, dout + (long long)t0 * C, BT, rows, C);
   for (int i = tid; i < BT * L.ldacc; i += NTHREADS) sAcc[i] = 0.f;
   for (int i = tid; i < BT * E; i += NTHREADS) {
-    sP[i] = 0.f;
+    sP[i] = (!kRouter && i < rows * E) ? probs_in[(long long)t0 * E + i] : 0.f;
     sDP[i] = 0.f;
   }
   cp_async_wait_all();
   __syncthreads();
 
-  // Router logits (x @ fw) @ cw_f, FC hidden columns at a time, as the forward.
-  for (int j0 = 0; j0 < Hd; j0 += FC) {
-    stage_cols(sW1, L.ldw1, fw, C, Hd, j0, FC, Hd);
-    cp_async_wait_all();
-    __syncthreads();
-    mma_tiles<wmma::row_major, wmma::row_major>(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C,
-                                                false);
-    __syncthreads();
-    for (int i = tid; i < BT * E; i += NTHREADS) {
-      const int r = i / E, e = i % E;
-      float s = 0.f;
-      for (int jj = 0; jj < FC && j0 + jj < Hd; ++jj) s = fmaf(sZ[r * L.ldz + jj], cw[(j0 + jj) * E + e], s);
-      sP[i] += s;
+  if constexpr (kRouter) {
+    // Router logits (x @ fw) @ cw_f, FC hidden columns at a time, as the forward.
+    for (int j0 = 0; j0 < Hd; j0 += FC) {
+      stage_cols(sW1, L.ldw1, fw, C, Hd, j0, FC, Hd);
+      cp_async_wait_all();
+      __syncthreads();
+      mma_tiles<wmma::row_major, wmma::row_major>(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C,
+                                                  false);
+      __syncthreads();
+      for (int i = tid; i < BT * E; i += NTHREADS) {
+        const int r = i / E, e = i % E;
+        float s = 0.f;
+        for (int jj = 0; jj < FC && j0 + jj < Hd; ++jj) s = fmaf(sZ[r * L.ldz + jj], cw[(j0 + jj) * E + e], s);
+        sP[i] += s;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-  }
 
-  // Soft routing probabilities, one thread per token.
-  for (int r = tid; r < BT; r += NTHREADS) {
-    const float it = inv_temp[0];
-    float p[MAX_E];
-    float mx = -INFINITY;
-    for (int e = 0; e < E; ++e) {
-      const float lg = (sP[r * E + e] + (r < rows ? tl[(long long)(t0 + r) * E + e] : 0.f)) * it;
-      p[e] = fminf(fmaxf(lg, -20.f), 20.f);
-      mx = fmaxf(mx, p[e]);
+    // Soft routing probabilities, one thread per token.
+    for (int r = tid; r < BT; r += NTHREADS) {
+      const float it = inv_temp[0];
+      float p[MAX_E];
+      float mx = -INFINITY;
+      for (int e = 0; e < E; ++e) {
+        const float lg = (sP[r * E + e] + (r < rows ? tl[(long long)(t0 + r) * E + e] : 0.f)) * it;
+        p[e] = fminf(fmaxf(lg, -20.f), 20.f);
+        mx = fmaxf(mx, p[e]);
+      }
+      float sum = 0.f;
+      for (int e = 0; e < E; ++e) {
+        p[e] = expf(p[e] - mx);
+        sum += p[e];
+      }
+      float sum2 = 0.f;
+      for (int e = 0; e < E; ++e) {
+        p[e] = fminf(fmaxf(p[e] / sum, 1e-6f), 1.f);
+        sum2 += p[e];
+      }
+      for (int e = 0; e < E; ++e) sP[r * E + e] = p[e] / sum2;
     }
-    float sum = 0.f;
-    for (int e = 0; e < E; ++e) {
-      p[e] = expf(p[e] - mx);
-      sum += p[e];
-    }
-    float sum2 = 0.f;
-    for (int e = 0; e < E; ++e) {
-      p[e] = fminf(fmaxf(p[e] / sum, 1e-6f), 1.f);
-      sum2 += p[e];
-    }
-    for (int e = 0; e < E; ++e) sP[r * E + e] = p[e] / sum2;
+    __syncthreads();
   }
-  __syncthreads();
 
   // This block's share of the (expert, F-chunk) loop.
   const int nfc = F / FC, nch = E * nfc;
@@ -501,21 +517,20 @@ int moegan_fused_moe_bwd_plan(int T, int C, int F, int E, int sms, int* plan) {
   return 1;
 }
 
-// Buffers (the wrapper allocates them from the plan):
-//   dz, ph: bf16 [T, E*F] scratch; ws_dx fp32 [splits, T, C]; ws_dp fp32
-//   [splits, T, E]; part_db1 fp32 [ntiles, E*F]; part_db2 fp32 [ntiles, E*C];
-//   ws_w1 fp32 [plan[3], C, E*F] and ws_w2 fp32 [plan[4], E*F, C] (may be
-//   null when that count is 1: the sum goes straight to dw1s / dw2s).
-// Outputs, all fp32: dx [T, C], dp [T, E], dw1s [C, E*F], db1 [E*F],
-//   dw2s [E*F, C], db2 [E*C].
-// Returns the cudaError_t of the launches (cudaErrorInvalidValue if the
-// arguments do not match the plan).
-int moegan_fused_moe_bwd(const void* x, const void* fw, const void* cw, const void* tl,
-                         const void* inv_temp, const void* w1, const void* b1, const void* w2,
-                         const void* b2, const void* dout, void* dz, void* ph, void* ws_dx,
-                         void* ws_dp, void* part_db1, void* part_db2, void* ws_w1, void* ws_w2,
-                         void* dx, void* dp, void* dw1s, void* db1, void* dw2s, void* db2, int T,
-                         int C, int Hd, int E, int F, const int* plan, void* stream) {
+}  // extern "C"
+
+namespace {
+
+// The launches of both entry points below: the token kernel (routing from
+// the router inputs when kRouter, else from probs_in), the finish pass and
+// the two weight-gradient products.
+template <bool kRouter>
+int launch_bwd(const void* x, const void* fw, const void* cw, const void* tl,
+               const void* inv_temp, const void* probs_in, const void* w1, const void* b1,
+               const void* w2, const void* b2, const void* dout, void* dz, void* ph,
+               void* ws_dx, void* ws_dp, void* part_db1, void* part_db2, void* ws_w1,
+               void* ws_w2, void* dx, void* dp, void* dw1s, void* db1, void* dw2s, void* db2,
+               int T, int C, int Hd, int E, int F, const int* plan, void* stream) {
   int bt = 0, fc = 0;
   if (!pick_tiles(C, F, E, &bt, &fc) || bt != plan[0] || fc != plan[1] || plan[2] < 1 ||
       plan[2] > 65535 || (plan[3] > 1 && ws_w1 == nullptr) || (plan[4] > 1 && ws_w2 == nullptr))
@@ -525,14 +540,15 @@ int moegan_fused_moe_bwd(const void* x, const void* fw, const void* cw, const vo
   const int EF = E * F;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Layout L(bt, fc, C, E);
-  cudaError_t err = cudaFuncSetAttribute(moe_bwd_token_kernel,
+  cudaError_t err = cudaFuncSetAttribute(moe_bwd_token_kernel<kRouter>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);
-  moe_bwd_token_kernel<<<dim3(ntiles, splits), NTHREADS, L.total, st>>>(
+  moe_bwd_token_kernel<kRouter><<<dim3(ntiles, splits), NTHREADS, L.total, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(fw), static_cast<const float*>(cw),
       static_cast<const float*>(tl), static_cast<const float*>(inv_temp),
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(probs_in), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const bf16*>(dout), static_cast<bf16*>(dz), static_cast<bf16*>(ph),
       static_cast<float*>(ws_dx), static_cast<float*>(ws_dp), static_cast<float*>(part_db1),
       static_cast<float*>(part_db2), T, C, Hd, E, F, bt, fc);
@@ -568,6 +584,46 @@ int moegan_fused_moe_bwd(const void* x, const void* fw, const void* cw, const vo
     }
   }
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Buffers (the wrapper allocates them from the plan):
+//   dz, ph: bf16 [T, E*F] scratch; ws_dx fp32 [splits, T, C]; ws_dp fp32
+//   [splits, T, E]; part_db1 fp32 [ntiles, E*F]; part_db2 fp32 [ntiles, E*C];
+//   ws_w1 fp32 [plan[3], C, E*F] and ws_w2 fp32 [plan[4], E*F, C] (may be
+//   null when that count is 1: the sum goes straight to dw1s / dw2s).
+// Outputs, all fp32: dx [T, C], dp [T, E], dw1s [C, E*F], db1 [E*F],
+//   dw2s [E*F, C], db2 [E*C].
+// Returns the cudaError_t of the launches (cudaErrorInvalidValue if the
+// arguments do not match the plan).
+int moegan_fused_moe_bwd(const void* x, const void* fw, const void* cw, const void* tl,
+                         const void* inv_temp, const void* w1, const void* b1, const void* w2,
+                         const void* b2, const void* dout, void* dz, void* ph, void* ws_dx,
+                         void* ws_dp, void* part_db1, void* part_db2, void* ws_w1, void* ws_w2,
+                         void* dx, void* dp, void* dw1s, void* db1, void* dw2s, void* db2, int T,
+                         int C, int Hd, int E, int F, const int* plan, void* stream) {
+  return launch_bwd<true>(x, fw, cw, tl, inv_temp, nullptr, w1, b1, w2, b2, dout, dz, ph, ws_dx,
+                          ws_dp, part_db1, part_db2, ws_w1, ws_w2, dx, dp, dw1s, db1, dw2s, db2,
+                          T, C, Hd, E, F, plan, stream);
+}
+
+// The backward of the expert-parallel combine (replaces _combine_bwd_kernel
+// and _combine_bwd_kernel_v2): the same gradient with the routing probs
+// [T, E] fp32 given instead of recomputed. dp is then the whole gradient of
+// probs and dx the whole gradient of x (there is no router chain). Buffers,
+// plan (moegan_fused_moe_bwd_plan) and return code as moegan_fused_moe_bwd.
+int moegan_moe_combine_bwd(const void* x, const void* probs, const void* w1, const void* b1,
+                           const void* w2, const void* b2, const void* dout, void* dz, void* ph,
+                           void* ws_dx, void* ws_dp, void* part_db1, void* part_db2, void* ws_w1,
+                           void* ws_w2, void* dx, void* dp, void* dw1s, void* db1, void* dw2s,
+                           void* db2, int T, int C, int E, int F, const int* plan,
+                           void* stream) {
+  return launch_bwd<false>(x, nullptr, nullptr, nullptr, nullptr, probs, w1, b1, w2, b2, dout,
+                           dz, ph, ws_dx, ws_dp, part_db1, part_db2, ws_w1, ws_w2, dx, dp, dw1s,
+                           db1, dw2s, db2, T, C, 0, E, F, plan, stream);
 }
 
 }  // extern "C"

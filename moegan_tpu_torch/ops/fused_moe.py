@@ -23,9 +23,18 @@ and the router chain's part is plain autograd over a recompute of
 `router_probs`, fed the probs cotangent plus the combine's, as the JAX
 package leaves it to XLA (`_fused_moe_bwd_v2`).
 
+The expert-parallel combine (`moe_ffn_combine`, `MoECombineFunction`)
+replaces the four probs-as-input TPU kernels `_combine_kernel`,
+`_combine_kernel_v2` (forward) and `_combine_bwd_kernel`,
+`_combine_bwd_kernel_v2` (backward): the routing probs are an input (a
+rank's local expert columns) and there is no router chain. The forward and
+backward kernels above serve it, instantiated without their router
+(`moegan_moe_combine_fwd`, `moegan_moe_combine_bwd`).
+
 Dispatch: a CPU tensor takes the plain version (`moe_ffn_reference`,
-`moe_ffn_bwd_reference`); a CUDA tensor launches the kernel or raises.
-There is no fallback between the two.
+`moe_ffn_bwd_reference`, `moe_ffn_combine_reference`,
+`moe_ffn_combine_bwd_reference`); a CUDA tensor launches the kernel or
+raises. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -92,20 +101,12 @@ def moe_ffn_bwd_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, do
         return torch.autograd.grad(out, leaves, dout.float())
 
 
-def _check_cuda_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2):
-    T, C = x.shape
+def _check_tensors(want: dict) -> None:
+    """Raise unless every tensor of `want` (name: (tensor, dtype, shape), x and
+    the FFN weights among them) has the kernels' type, shape and layout."""
+    x, w1 = want["x"][0], want["w1"][0]
+    C = x.shape[1]
     E, _, F = w1.shape
-    want = {
-        "x": (x, torch.bfloat16, (T, C)),
-        "fw": (fw, torch.bfloat16, (C, fw.shape[-1])),
-        "cw_f": (cw_f, torch.float32, (fw.shape[-1], E)),
-        "text_logits": (text_logits, torch.float32, (T, E)),
-        "inv_temp": (inv_temp, torch.float32, (1,)),
-        "w1": (w1, torch.bfloat16, (E, C, F)),
-        "b1": (b1, torch.float32, (E, F)),
-        "w2": (w2, torch.bfloat16, (E, F, C)),
-        "b2": (b2, torch.float32, (E, C)),
-    }
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
@@ -117,6 +118,24 @@ def _check_cuda_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2):
         raise ValueError(f"the kernel takes C and F multiples of 16, got C={C}, F={F}")
     if E > 16:
         raise ValueError(f"the kernel takes at most 16 experts, got {E}")
+
+
+def _ffn_want(x, w1, b1, w2, b2) -> dict:
+    T, C = x.shape
+    E, _, F = w1.shape
+    return dict(x=(x, torch.bfloat16, (T, C)), w1=(w1, torch.bfloat16, (E, C, F)),
+                b1=(b1, torch.float32, (E, F)), w2=(w2, torch.bfloat16, (E, F, C)),
+                b2=(b2, torch.float32, (E, C)))
+
+
+def _check_cuda_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2):
+    T = x.shape[0]
+    E = w1.shape[0]
+    _check_tensors(dict(_ffn_want(x, w1, b1, w2, b2),
+                        fw=(fw, torch.bfloat16, (x.shape[1], fw.shape[-1])),
+                        cw_f=(cw_f, torch.float32, (fw.shape[-1], E)),
+                        text_logits=(text_logits, torch.float32, (T, E)),
+                        inv_temp=(inv_temp, torch.float32, (1,))))
     if fw.shape[-1] % 8:
         raise ValueError(f"the kernel takes a router width that is a multiple of 8, got {fw.shape[-1]}")
 
@@ -201,40 +220,55 @@ def fused_moe_bwd(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
     dout = dout.to(x.dtype).contiguous()
     if dout.shape != x.shape:
         raise ValueError(f"dout: want {tuple(x.shape)}, got {tuple(dout.shape)}")
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx, dp = torch.empty((T, C), **f32), torch.empty((T, E), **f32)
-    dw1s, db1 = torch.empty((C, E * F), **f32), torch.empty((E, F), **f32)
-    dw2, db2 = torch.empty((E, F, C), **f32), torch.empty((E, C), **f32)
-    bt, _, splits, ws1, ws2 = plan = bwd_kernel_plan(T, C, F, E, x.device)
-    ntiles = -(-T // bt)
-    bf = dict(dtype=x.dtype, device=x.device)
-    # bf16 scratch of dz and p*h for the weight-gradient products, and the
-    # partial sums that the kernel's later passes add in a fixed order
-    dz, ph = torch.empty((T, E * F), **bf), torch.empty((T, E * F), **bf)
-    ws_dx, ws_dp = torch.empty((splits, T, C), **f32), torch.empty((splits, T, E), **f32)
-    part_db1, part_db2 = torch.empty((ntiles, E * F), **f32), torch.empty((ntiles, E * C), **f32)
-    ws_w1 = torch.empty((ws1, C, E * F), **f32) if ws1 > 1 else None
-    ws_w2 = torch.empty((ws2, E * F, C), **f32) if ws2 > 1 else None
+    plan, scratch, outs = _bwd_buffers(x, E, F)
     lib = _build.load("fused_moe_bwd")
     fn = lib.moegan_fused_moe_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
     ]
-    ptr = (lambda t: t.data_ptr() if t is not None else None)
     rc = fn(
-        *(ptr(t) for t in (x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout, dz, ph,
-                           ws_dx, ws_dp, part_db1, part_db2, ws_w1, ws_w2,
-                           dx, dp, dw1s, db1, dw2, db2)),
+        *_ptrs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout, *scratch, *outs),
         T, C, fw.shape[-1], E, F, (ctypes.c_int * 5)(*plan),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, "fused_moe_bwd")
     fused_moe_bwd.launches += 1
-    return dx, dp, dw1s.reshape(C, E, F).permute(1, 0, 2), db1, dw2, db2
+    return _bwd_outputs(outs, C, E, F)
 
 
 fused_moe_bwd.launches = 0
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() if t is not None else None for t in tensors]
+
+
+def _bwd_buffers(x, E: int, F: int):
+    """(plan, scratch, outputs) of the backward kernels for tokens x [T, C]:
+    the bf16 scratch of dz and p*h for the weight-gradient products and the
+    partial sums that the later passes add in a fixed order; the fp32
+    outputs dx, dp, dw1s [C, E*F], db1, dw2, db2."""
+    T, C = x.shape
+    plan = bwd_kernel_plan(T, C, F, E, x.device)
+    bt, _, splits, ws1, ws2 = plan
+    ntiles = -(-T // bt)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    bf = dict(dtype=x.dtype, device=x.device)
+    scratch = (torch.empty((T, E * F), **bf), torch.empty((T, E * F), **bf),
+               torch.empty((splits, T, C), **f32), torch.empty((splits, T, E), **f32),
+               torch.empty((ntiles, E * F), **f32), torch.empty((ntiles, E * C), **f32),
+               torch.empty((ws1, C, E * F), **f32) if ws1 > 1 else None,
+               torch.empty((ws2, E * F, C), **f32) if ws2 > 1 else None)
+    outs = (torch.empty((T, C), **f32), torch.empty((T, E), **f32),
+            torch.empty((C, E * F), **f32), torch.empty((E, F), **f32),
+            torch.empty((E, F, C), **f32), torch.empty((E, C), **f32))
+    return plan, scratch, outs
+
+
+def _bwd_outputs(outs, C: int, E: int, F: int):
+    dx, dp, dw1s, db1, dw2, db2 = outs
+    return dx, dp, dw1s.reshape(C, E, F).permute(1, 0, 2), db1, dw2, db2
 
 
 def bwd_kernel_plan(T: int, C: int, F: int, E: int, device) -> tuple[int, int, int, int, int]:
@@ -277,3 +311,112 @@ class FusedMoEFunction(torch.autograd.Function):
             dx_r, dfw, dcw, dtl, dit = torch.autograd.grad(probs, leaves, dprobs.float() + dp)
         return ((dx_ffn + dx_r.float()).to(x.dtype), dfw, dcw, dtl, dit,
                 dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
+
+
+# --- the expert-parallel combine (probs as an input) ------------------------------------
+
+
+def moe_ffn_combine_reference(x, probs, w1, b1, w2, b2):
+    """Plain version (moegan_tpu/ops/fused_moe.py:1034-1043): sum_e probs[:, e] *
+    (gelu(x @ W1_e + b1_e) @ W2_e + b2_e) over the E experts given, in x's dtype."""
+    return ffn_combine(x.float(), probs.float(), w1, b1, w2, b2, x.dtype).to(x.dtype)
+
+
+def moe_ffn_combine_bwd_reference(x, probs, w1, b1, w2, b2, dout):
+    """Plain version of the combine's backward: (dx [T, C], dp [T, E], dw1, db1,
+    dw2, db2), all fp32, the autograd of `ffn_combine` for the cotangent dout."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_(True) for t in (x, probs, w1, b1, w2, b2)]
+        out = ffn_combine(*leaves, x.dtype)
+        return torch.autograd.grad(out, leaves, dout.float())
+
+
+def _check_combine_inputs(x, probs, w1, b1, w2, b2):
+    _check_tensors(dict(_ffn_want(x, w1, b1, w2, b2),
+                        probs=(probs, torch.float32, (x.shape[0], w1.shape[0]))))
+
+
+def moe_ffn_combine(x, probs, w1, b1, w2, b2):
+    """sum_e probs[:, e] * FFN_e(x) over the given (local) experts.
+
+    x [T, C]; probs [T, E] (soft, or one-hot at eval); w1 [E, C, F], b1
+    [E, F], w2 [E, F, C], b2 [E, C]. On CUDA: x, w1, w2 bf16, the rest
+    float32. Returns out [T, C] in x's dtype: a rank's partial sum, which
+    the caller adds over the expert group.
+    """
+    if x.device.type == "cpu":
+        return moe_ffn_combine_reference(x, probs, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_ffn_combine runs on cpu or cuda tensors, got {x.device}")
+    _check_combine_inputs(x, probs, w1, b1, w2, b2)
+    T, C = x.shape
+    E, _, F = w1.shape
+    out = torch.empty((T, C), dtype=x.dtype, device=x.device)
+    if T == 0:
+        return out
+    _, _, splits = kernel_plan(T, C, F, E, x.device)
+    ws = torch.empty((splits, T, C), dtype=torch.float32, device=x.device) if splits > 1 else None
+    lib = _build.load("fused_moe")
+    fn = lib.moegan_moe_combine_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    rc = fn(
+        x.data_ptr(), probs.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
+        T, C, E, F, splits, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, rc, "moe_combine_fwd")
+    moe_ffn_combine.launches += 1
+    return out
+
+
+moe_ffn_combine.launches = 0
+
+
+def moe_ffn_combine_bwd(x, probs, w1, b1, w2, b2, dout):
+    """The gradient of `moe_ffn_combine` for the output cotangent dout [T, C]:
+    (dx, dp, dw1, db1, dw2, db2) in float32, as `moe_ffn_combine_bwd_reference`."""
+    if x.device.type == "cpu":
+        return moe_ffn_combine_bwd_reference(x, probs, w1, b1, w2, b2, dout)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_ffn_combine_bwd runs on cpu or cuda tensors, got {x.device}")
+    _check_combine_inputs(x, probs, w1, b1, w2, b2)
+    T, C = x.shape
+    E, _, F = w1.shape
+    dout = dout.to(x.dtype).contiguous()
+    if dout.shape != x.shape:
+        raise ValueError(f"dout: want {tuple(x.shape)}, got {tuple(dout.shape)}")
+    plan, scratch, outs = _bwd_buffers(x, E, F)
+    lib = _build.load("fused_moe_bwd")
+    fn = lib.moegan_moe_combine_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ]
+    rc = fn(
+        *_ptrs(x, probs, w1, b1, w2, b2, dout, *scratch, *outs),
+        T, C, E, F, (ctypes.c_int * 5)(*plan), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, rc, "moe_combine_bwd")
+    moe_ffn_combine_bwd.launches += 1
+    return _bwd_outputs(outs, C, E, F)
+
+
+moe_ffn_combine_bwd.launches = 0
+
+
+class MoECombineFunction(torch.autograd.Function):
+    """Differentiable `moe_ffn_combine`: the forward kernel, saving only its
+    inputs (as `_combine_vjp_fwd`), and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, probs, w1, b1, w2, b2):
+        ctx.save_for_backward(x, probs, w1, b1, w2, b2)
+        return moe_ffn_combine(x, probs, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, probs, w1, b1, w2, b2 = ctx.saved_tensors
+        dx, dp, dw1, db1, dw2, db2 = moe_ffn_combine_bwd(x, probs, w1, b1, w2, b2, dout)
+        return (dx.to(x.dtype), dp.to(probs.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(b2.dtype))

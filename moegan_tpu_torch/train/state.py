@@ -19,6 +19,15 @@ flat float32 buffers so that it matches optax step for step:
   the device, so the step never waits on the host.
 
 Parameters are updated in place (the JAX step returns new arrays).
+
+Under a mesh (`parallel.mesh`) every rank builds the full G and D from
+the same seed and keeps its slice of the expert-sharded MoE weights
+(`parallel.sharding.shard_module_`), so a sharded state is exactly the
+shards of the single-device state, and AdamW's flat buffers hold the local
+parameters. The update must still see the global gradient: the squared
+norm of the expert-sharded part is summed over the expert group before
+the clip, and the non-finite flag over the whole world, so that all ranks
+skip or apply an update together.
 """
 
 from __future__ import annotations
@@ -26,11 +35,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from moegan_tpu_torch import resolve_device
 from moegan_tpu_torch.config import TrainConfig
 from moegan_tpu_torch.models.discriminator import AuroraDiscriminator
 from moegan_tpu_torch.models.generator import AuroraGenerator
+from moegan_tpu_torch.parallel.mesh import Mesh
+from moegan_tpu_torch.parallel.sharding import param_sharding_rules, shard_module_
 
 MAX_CONSECUTIVE_ERRORS = 100
 
@@ -51,16 +63,46 @@ def init_adamw(params) -> AdamWState:
     return AdamWState(zero, torch.zeros(n, device=dev), torch.zeros(n, device=dev), zero.clone())
 
 
+def _global_norm_and_finite(g: torch.Tensor, sizes, sharded, finite, mesh: Mesh):
+    """The norm of the whole (unsharded) gradient and the world's finite flag.
+
+    The replicated part's squared norm is computed from the replicated
+    gradients alone, the same bits on every rank, so that the replicated
+    parameters stay identical across the expert group; the expert-sharded
+    part's is summed over the group.
+    """
+    parts = g.split(sizes)
+    rep = [x for x, s in zip(parts, sharded) if not s]
+    exp = [x for x, s in zip(parts, sharded) if s]
+    sq_rep = torch.sum(torch.cat(rep) ** 2) if rep else g.new_zeros(())
+    sq_exp = torch.sum(torch.cat(exp) ** 2) if exp else g.new_zeros(())
+    if mesh.expert_group is not None and exp:
+        dist.all_reduce(sq_exp, group=mesh.expert_group)
+    notfinite = (~finite).float()
+    if mesh.world_size > 1:
+        dist.all_reduce(notfinite)
+    return torch.sqrt(sq_rep + sq_exp), notfinite == 0
+
+
 @torch.no_grad()
 def clipped_adamw_update(params, grads, state: AdamWState, lr_fn, clip: float, b1: float,
                          b2: float, weight_decay: float, eps: float = 1e-8,
-                         max_consecutive_errors: int = MAX_CONSECUTIVE_ERRORS) -> None:
-    """One optimizer update of `params` (a list of tensors) from `grads`, in place."""
+                         max_consecutive_errors: int = MAX_CONSECUTIVE_ERRORS,
+                         mesh: Mesh | None = None, sharded=None) -> None:
+    """One optimizer update of `params` (a list of tensors) from `grads`, in place.
+
+    Under `mesh`, `sharded[i]` says whether params[i] is this rank's slice
+    of an expert-sharded parameter; the grads are the data-group averages.
+    """
     params = list(params)
     g = torch.cat([x.reshape(-1).float() for x in grads])
     p = torch.cat([x.reshape(-1).float() for x in params])
     finite = torch.isfinite(g).all()
-    norm = torch.sqrt(torch.sum(g * g))
+    if mesh is None:
+        norm = torch.sqrt(torch.sum(g * g))
+    else:
+        norm, finite = _global_norm_and_finite(g, [x.numel() for x in params], sharded, finite,
+                                               mesh)
     g = torch.where(norm < clip, g, g / norm * clip)
     count_inc = state.count + 1
     mu = (1 - b1) * g + b1 * state.mu
@@ -86,14 +128,27 @@ class TrainState:
     discriminator: AuroraDiscriminator
     g_opt: AdamWState
     d_opt: AdamWState
+    mesh: Mesh | None = None
 
 
-def create_train_state(cfg: TrainConfig, device="cuda", seed: int | None = None) -> TrainState:
+def sharded_mask(module: torch.nn.Module, mesh: Mesh | None) -> list[bool]:
+    """Per parameter of `module`, whether the mesh splits it over its expert axis."""
+    if mesh is None or mesh.expert_size == 1:
+        return [False] * len(list(module.parameters()))
+    return [param_sharding_rules(n, mesh.expert_axis) is not None
+            for n, _ in module.named_parameters()]
+
+
+def create_train_state(cfg: TrainConfig, device="cuda", seed: int | None = None,
+                       mesh: Mesh | None = None) -> TrainState:
     """G and D from the port's seeded initialisers (`seed`, default cfg.seed) on
-    `device`, with fresh optimizer states. Raises without a card unless
-    device="cpu"."""
+    `device`, with fresh optimizer states; under `mesh`, this rank's shards.
+    Raises without a card unless device="cpu"."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-    g = AuroraGenerator(cfg.generator, gen=gen).to(dev)
-    d = AuroraDiscriminator(cfg.discriminator, gen=gen).to(dev)
-    return TrainState(0, g, d, init_adamw(g.parameters()), init_adamw(d.parameters()))
+    g = AuroraGenerator(cfg.generator, gen=gen)
+    d = AuroraDiscriminator(cfg.discriminator, gen=gen)
+    if mesh is not None:
+        shard_module_(g, mesh)
+    g, d = g.to(dev), d.to(dev)
+    return TrainState(0, g, d, init_adamw(g.parameters()), init_adamw(d.parameters()), mesh)

@@ -1,5 +1,5 @@
-"""The adversarial training step (counterpart of moegan_tpu/train/step.py:37-196),
-default configuration, one device.
+"""The adversarial training step and the validation step (counterpart of
+moegan_tpu/train/step.py), default configuration.
 
 D phase: real logits and the R1 penalty from one double-backward, the fake
 from a no-grad generator forward with its own router noise, the
@@ -11,6 +11,18 @@ router KL, then the G update. No CLIP loss: this is the JAX step's
 
 The step runs where the state lives: the kernels on the card, their plain
 versions on the CPU.
+
+Under a mesh (`state.mesh`, from `parallel.api.setup_distributed_training`)
+the step keeps the single-device semantics that GSPMD gives the JAX step:
+every rank takes the global batch (or its slice, `parallel.sharding.
+shard_batch`) and draws the noise for the global batch from the same seeded
+generator, then keeps its data slice, so z and the router noise are the
+single-device step's and the shuffled text pairs across data shards as on
+one device. The forwards run under the mesh (the sharded MoE path when its
+expert axis is larger than 1); after each backward the gradients are
+averaged over the data group, the balance and routing statistics are
+taken over the global batch, and the scalar metrics are averaged over the
+data group.
 """
 
 from __future__ import annotations
@@ -28,8 +40,15 @@ from moegan_tpu_torch.losses.gan import (
     moe_balance_loss,
 )
 from moegan_tpu_torch.models.generator import AuroraGenerator
+from moegan_tpu_torch.parallel.mesh import maybe_mesh_context
+from moegan_tpu_torch.parallel.sharding import (
+    batch_sharding,
+    data_mean,
+    gather_batch,
+    shard_batch,
+)
 from moegan_tpu_torch.train.schedules import warmup_cosine
-from moegan_tpu_torch.train.state import TrainState, clipped_adamw_update
+from moegan_tpu_torch.train.state import TrainState, clipped_adamw_update, sharded_mask
 
 
 def _check_supported(cfg: TrainConfig) -> None:
@@ -71,15 +90,37 @@ def draw_noise(generator_module: AuroraGenerator, batch_size: int,
     return noise
 
 
+def _local_inputs(state: TrainState, batch):
+    """(real, text, local slice function, global batch size) of this rank."""
+    dev = state.generator.constant.device
+    mesh = state.mesh
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    real = batch["image"].to(dev, torch.float32)
+    text = batch["text"].to(dev, torch.float32)
+    data_size = 1 if mesh is None else mesh.data_size
+    return real, text, batch_sharding(mesh), real.shape[0] * data_size
+
+
+def _mean_metrics(metrics: dict, mesh) -> dict:
+    """Detached metrics; the scalars averaged over the data group."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    names = [k for k, v in metrics.items() if v.dim() == 0]
+    for k, v in zip(names, data_mean([metrics[k] for k in names], mesh)):
+        metrics[k] = v
+    return metrics
+
+
 def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
     """step(state, batch, schedule, noise=None, generator=None) -> (state, metrics).
 
-    batch = {"image": [B, R, R, 3] in [-1, 1], "text": [B, 512]}; schedule =
+    batch = {"image": [B, R, R, 3] in [-1, 1], "text": [B, 512]}, the
+    global batch (under a mesh also this rank's `ShardedBatch`); schedule =
     {"temperature_factor", "effective_kl_weight"} (numbers, per epoch on
-    the host, `losses.gan`); noise as `draw_noise` gives it, or None to draw
-    it from `generator`. The state is updated in place and returned; the
-    metrics are detached scalars (and [blocks, E] routing statistics) on
-    the state's device.
+    the host, `losses.gan`); noise as `draw_noise` gives it for the global
+    batch, or None to draw it from `generator`. The state is updated in
+    place and returned; the metrics are detached scalars (and [blocks, E]
+    routing statistics) on the state's device.
     """
     _check_supported(cfg)
     lcfg = cfg.loss
@@ -91,49 +132,96 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
                               weight_decay=cfg.weight_decay)
 
     def step(state: TrainState, batch, schedule, noise=None, generator=None):
-        gen, disc = state.generator, state.discriminator
+        gen, disc, mesh = state.generator, state.discriminator, state.mesh
         dev = gen.constant.device
-        real = batch["image"].to(dev, torch.float32)
-        text = batch["text"].to(dev, torch.float32)
+        real, text, local, B = _local_inputs(state, batch)
         temp = schedule["temperature_factor"]
         eff_kl_w = schedule["effective_kl_weight"]
         if noise is None:
-            noise = draw_noise(gen, real.shape[0], generator)
-        z, perm = noise["z"].to(dev), noise["perm"].to(dev)
+            noise = draw_noise(gen, B, generator)
+        z, perm = local(noise["z"].to(dev)), noise["perm"].to(dev)
+        mism_text = local(gather_batch(text, mesh)[perm])
         g_params, d_params = list(gen.parameters()), list(disc.parameters())
+        g_mask, d_mask = sharded_mask(gen, mesh), sharded_mask(disc, mesh)
 
-        # D phase: real logits and their input gradient in one graph (R1).
-        real_in = real.detach().requires_grad_(True)
-        real_pred = disc(real_in, text)
-        (grad_real,) = torch.autograd.grad(real_pred.sum(), real_in, create_graph=True)
-        r1 = (lcfg.r1_gamma / 2.0) * grad_real.float().square().sum(dim=(1, 2, 3)).mean()
-        with torch.no_grad():
-            fake = gen(z, text, training=True, annealing_factor=temp,
-                       router_eps=noise["eps_d"]).image
-        fake_pred = disc(fake, text)
-        mism_pred = disc(real, text[perm])
-        d_gan = discriminator_loss(real_pred, fake_pred, mism_pred)
-        d_total = d_gan + r1
-        adamw(d_params, torch.autograd.grad(d_total, d_params), state.d_opt,
-              clip=cfg.grad_clip_d)
+        with maybe_mesh_context(mesh):
+            # D phase: real logits and their input gradient in one graph (R1).
+            real_in = real.detach().requires_grad_(True)
+            real_pred = disc(real_in, text)
+            (grad_real,) = torch.autograd.grad(real_pred.sum(), real_in, create_graph=True)
+            r1 = (lcfg.r1_gamma / 2.0) * grad_real.float().square().sum(dim=(1, 2, 3)).mean()
+            with torch.no_grad():
+                fake = gen(z, text, training=True, annealing_factor=temp,
+                           router_eps=noise["eps_d"]).image
+            fake_pred = disc(fake, text)
+            mism_pred = disc(real, mism_text)
+            d_gan = discriminator_loss(real_pred, fake_pred, mism_pred)
+            d_total = d_gan + r1
+            d_grads = data_mean(torch.autograd.grad(d_total, d_params), mesh)
+            adamw(d_params, d_grads, state.d_opt, clip=cfg.grad_clip_d, mesh=mesh,
+                  sharded=d_mask)
 
-        # G phase, against the updated D.
-        out = gen(z, text, training=True, annealing_factor=temp, router_eps=noise["eps_g"])
-        kl = torch.clamp(out.kl, max=lcfg.kl_clamp)
-        g_gan = generator_loss(disc(out.image, text))
-        balance = moe_balance_loss(out.routing, lcfg.balance_weight)
-        g_total = g_gan + balance + eff_kl_w * kl
-        # norm2 and the cross-attention's q/k weights feed nothing (one text
-        # token): their gradients are zero, as in the JAX package.
-        g_grads = torch.autograd.grad(g_total, g_params, allow_unused=True, materialize_grads=True)
-        adamw(g_params, g_grads, state.g_opt,
-              clip=cfg.grad_clip_g)
+            # G phase, against the updated D.
+            out = gen(z, text, training=True, annealing_factor=temp, router_eps=noise["eps_g"])
+            kl = torch.clamp(out.kl, max=lcfg.kl_clamp)
+            g_gan = generator_loss(disc(out.image, text))
+            balance = moe_balance_loss(out.routing, lcfg.balance_weight, mesh)
+            g_total = g_gan + balance + eff_kl_w * kl
+            # norm2 and the cross-attention's q/k weights feed nothing (one text
+            # token): their gradients are zero, as in the JAX package.
+            g_grads = data_mean(torch.autograd.grad(g_total, g_params, allow_unused=True,
+                                                    materialize_grads=True), mesh)
+            adamw(g_params, g_grads, state.g_opt, clip=cfg.grad_clip_g, mesh=mesh,
+                  sharded=g_mask)
 
         state.step += 1
         metrics = dict(d_loss=d_gan, r1_loss=r1, d_total=d_total, g_total=g_total, g_loss=g_gan,
                        kl_loss=kl, balance_loss=balance,
-                       expert_util=expert_utilization_per_block(out.routing),
-                       expert_top1=expert_top1_per_block(out.routing))
-        return state, {k: v.detach() for k, v in metrics.items()}
+                       expert_util=expert_utilization_per_block(out.routing, mesh),
+                       expert_top1=expert_top1_per_block(out.routing, mesh))
+        return state, _mean_metrics(metrics, mesh)
 
     return step
+
+
+def make_eval_step(cfg: TrainConfig):
+    """eval_fn(state, batch, schedule, generator=None, noise=None) ->
+    {"val_d_loss", "val_g_loss"} (moegan_tpu/train/step.py:199-249, with_clip=False).
+
+    G at eval (mean router weights, hard routing: under an expert axis the
+    combine kernel takes one-hot probs), D on the real images, the fake and
+    the real images against shuffled text; no update. The noise, {"z": [B,
+    latent], "perm": [B]} for the global batch, is given or drawn (z, then
+    the shuffle) from `generator`, the caller's stream apart from the
+    training steps'. Under a mesh the batch is as in the training step and
+    the losses are averaged over the data group.
+    """
+    _check_supported(cfg)
+    lcfg = cfg.loss
+
+    @torch.no_grad()
+    def eval_fn(state: TrainState, batch, schedule, generator=None, noise=None):
+        gen, disc, mesh = state.generator, state.discriminator, state.mesh
+        dev = gen.constant.device
+        real, text, local, B = _local_inputs(state, batch)
+        if noise is None:
+            gdev = generator.device if generator is not None else torch.device("cpu")
+            noise = {"z": torch.randn((B, cfg.generator.latent_dim), generator=generator,
+                                      device=gdev),
+                     "perm": torch.randperm(B, generator=generator, device=gdev)}
+        z, perm = local(noise["z"].to(dev)), noise["perm"].to(dev)
+        mism_text = local(gather_batch(text, mesh)[perm])
+        with maybe_mesh_context(mesh):
+            out = gen(z, text, training=False, annealing_factor=schedule["temperature_factor"])
+            real_pred = disc(real, text)
+            fake_pred = disc(out.image, text)
+            mism_pred = disc(real, mism_text)
+        metrics = {
+            "val_d_loss": discriminator_loss(real_pred, fake_pred, mism_pred),
+            # step.py:241-243: the val G loss includes the annealed, clamped KL.
+            "val_g_loss": generator_loss(fake_pred) + schedule["effective_kl_weight"]
+            * torch.clamp(out.kl, max=lcfg.kl_clamp),
+        }
+        return _mean_metrics(metrics, mesh)
+
+    return eval_fn

@@ -94,3 +94,55 @@ def test_moe_bwd_kernel_matches_plain_on_card(cuda_device, C, T):
         # each); sums over up to 4C hidden units or T tokens.
         scale = z.abs().max().item()
         torch.testing.assert_close(x, z, atol=3e-2 * scale, rtol=0, msg=name)
+
+
+def _combine_args(dev, E, C, T, onehot, seed):
+    """A rank's view: E local experts of 4, probs = the local columns of a
+    softmax over 4 (or of a one-hot), weights at the init scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    F_ = 4 * C
+    probs = torch.softmax(torch.randn((T, 4), generator=g, device=dev) * 2, dim=-1)
+    if onehot:
+        probs = torch.nn.functional.one_hot(probs.argmax(-1), 4).float()
+    probs = probs[:, :E].contiguous()
+
+    def ru(*shape, bound):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * bound
+
+    return [torch.randn((T, C), generator=g, device=dev).to(torch.bfloat16), probs,
+            ru(E, C, F_, bound=C ** -0.5).to(torch.bfloat16), ru(E, F_, bound=C ** -0.5),
+            ru(E, F_, C, bound=F_ ** -0.5).to(torch.bfloat16), ru(E, C, bound=F_ ** -0.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("onehot", [False, True])
+@pytest.mark.parametrize("E,C,T", [(2, 32, 77), (1, 128, 300), (2, 512, 1024)])
+def test_moe_combine_kernel_matches_plain_on_card(cuda_device, E, C, T, onehot):
+    args = _combine_args(cuda_device, E, C, T, onehot, seed=C + T)
+    out = tfm.moe_ffn_combine(*args)
+    again = tfm.moe_ffn_combine(*args)
+    want = tfm.moe_ffn_combine_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)  # split partials are summed in a fixed order
+    # bf16 output, and p*h rounded to bf16 before the second product: a few
+    # bf16 ulps of the largest |out|.
+    atol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,T", [(2, 32, 77), (1, 128, 300), (2, 512, 1024)])
+def test_moe_combine_bwd_kernel_matches_plain_on_card(cuda_device, E, C, T):
+    args = _combine_args(cuda_device, E, C, T, False, seed=C + T + 1)
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+    dout = torch.randn((T, C), generator=g, device=cuda_device).to(torch.bfloat16)
+    got = tfm.moe_ffn_combine_bwd(*args, dout)
+    again = tfm.moe_ffn_combine_bwd(*args, dout)
+    want = tfm.moe_ffn_combine_bwd_reference(*args, dout)
+    torch.cuda.synchronize()
+    for name, x, y, z in zip(("dx", "dp", "dw1", "db1", "dw2", "db2"), got, again, want):
+        assert torch.equal(x, y), f"{name}: two calls differ"
+        # dz and p*h are rounded to bf16 before the products, as in the
+        # fused MoE backward: within 2e-2 of the largest |grad|.
+        scale = z.abs().max().item()
+        torch.testing.assert_close(x, z, atol=2e-2 * scale, rtol=0, msg=name)

@@ -180,8 +180,10 @@ def test_save_npz_reads_back_in_both_packages(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the training slice's included), chip_smoke.py and
-    the port's profile scripts import with jax, flax and moegan_tpu blocked."""
+    """Every module of the port (the training and distributed slices' included),
+    chip_smoke.py, the port's profile scripts and the helper module that the
+    distributed tests spawn their ranks from import with jax, flax and
+    moegan_tpu blocked."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'moegan_tpu'):\n"
@@ -192,6 +194,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "sys.path.insert(0, 'scripts')\n"
         "import chip_smoke, torch_serving_profile, torch_train_profile\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_dist_helpers\n"
         "print(' '.join(names))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -199,10 +203,14 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 22
+    assert len(names) >= 42
     assert {"moegan_tpu_torch.models.discriminator", "moegan_tpu_torch.losses.gan",
             "moegan_tpu_torch.train.schedules", "moegan_tpu_torch.train.state",
             "moegan_tpu_torch.train.step"} <= names
+    assert {"moegan_tpu_torch.parallel.api", "moegan_tpu_torch.parallel.mesh",
+            "moegan_tpu_torch.parallel.sharding", "moegan_tpu_torch.train.loop",
+            "moegan_tpu_torch.data.datasets", "moegan_tpu_torch.data.loader",
+            "moegan_tpu_torch.utils.metrics", "moegan_tpu_torch.utils.profiling"} <= names
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
