@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's 64x64 serving path, training step and distributed
-training on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's 64x64 serving path, training step, distributed
+training and opt-in kernel configuration on one NVIDIA GPU and check them.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and nvcc (it builds the port's kernels from `moegan_tpu_torch/ops/csrc`).
@@ -45,6 +45,20 @@ failure (non-zero exit, no result line):
    batch's 5 combine forwards. ms/step is two ranks sharing one card over
    gloo, not a multi-GPU number.
 
+10. the JAX package's opt-in kernel configuration, MOEGAN_FUSED_LN=1 and
+   MOEGAN_PALLAS_MOE_BWD=3, set in this phase alone and restored after it:
+   (a) both LayerNorm kernels against their plain twins at the five norm
+   shapes of the step at batch 64, two calls bit-identical, times beside
+   `F.layer_norm`'s; (b) the three legacy MoE backward entry points, each
+   against its own plain twin at the five MoE blocks, and
+   `FusedMoEFunction`'s gradients under =3 against =1; (c) 5 training steps
+   at batch 64 (launches 6 / 3 flash, 10 fused MoE forwards, 0 fused MoE
+   backwards, 5 of each legacy entry point, 20 / 10 LayerNorm) and the
+   batch-4 step against the CPU's under the same flags, to phase 7's
+   limits; (d) one batch-16 generator call with MOEGAN_FUSED_LN=1 against
+   the default call (10 LayerNorm forwards, phase 5's limit). Phases 6 and 9
+   require 0 launches of these five kernels.
+
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
 """
@@ -52,6 +66,7 @@ The second-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import os
 import shutil
@@ -75,6 +90,7 @@ ROUTER_SCALE = 100.0
 # The HTTP clients' /poll interval (the bundled frontend polls every 3 s).
 POLL_S = 0.02
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -104,8 +120,8 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -528,7 +544,28 @@ def image_stats(raw_card, raw_cpu):
             "raw_max_rel_diff": float(np.abs(raw_card - raw_cpu).max() / np.abs(raw_cpu).max())}
 
 
-def generator_phase(cfg, state_dict, tfm):
+@contextlib.contextmanager
+def pinned_routing(routing):
+    """Make each generator block's hard routing pick exactly the experts of
+    `routing` (the blocks' probs of an earlier call, in order), ties included:
+    text logits of +-1e4 clip to +-20."""
+    import moegan_tpu_torch.core.moe as moe_mod
+
+    probs = iter(routing)
+    plain = moe_mod.fused_moe_ffn
+
+    def pinned(x, fw, cw_f, text_logits, inv_temp, *rest, hard=False):
+        p = next(probs).reshape(text_logits.shape).to(text_logits.device)
+        return plain(x, fw, cw_f, torch.where(p > 0, 1e4, -1e4), inv_temp, *rest, hard=hard)
+
+    moe_mod.fused_moe_ffn = pinned
+    try:
+        yield
+    finally:
+        moe_mod.fused_moe_ffn = plain
+
+
+def generator_phase(cfg, state_dict):
     """One batch-4 call on the card (kernels, bf16) against the CPU (plain versions, float32).
 
     Hard routing turns bf16 noise into a different expert for the few
@@ -537,7 +574,6 @@ def generator_phase(cfg, state_dict, tfm):
     the top-1 agreement) and pinned to the card's routing, which is the
     run the tolerance holds.
     """
-    import moegan_tpu_torch.core.moe as moe_mod
     from moegan_tpu_torch.infer.sample import Sampler
     from moegan_tpu_torch.models.generator import AuroraGenerator
 
@@ -555,21 +591,9 @@ def generator_phase(cfg, state_dict, tfm):
     cpu.load_state_dict(state_dict)
     with torch.inference_mode():
         free = cpu(z, txt, psi)
-    pinned_probs = iter(routing_card)
-    plain = moe_mod.fused_moe_ffn
-
-    def pinned(x, fw, cw_f, text_logits, inv_temp, *rest, hard=False):
-        # Text logits of +-1e4 clip to +-20 and make hard routing pick
-        # exactly the card's expert(s), ties included.
-        p = next(pinned_probs).reshape(text_logits.shape)
-        return plain(x, fw, cw_f, torch.where(p > 0, 1e4, -1e4), inv_temp, *rest, hard=hard)
-
-    moe_mod.fused_moe_ffn = pinned
-    try:
+    with pinned_routing(routing_card):
         with torch.inference_mode():
             held = cpu(z, txt, psi)
-    finally:
-        moe_mod.fused_moe_ffn = plain
     check(np.isfinite(img_card).all(), "card images are not finite")
     check(img_card.shape == (4, 64, 64, 3), f"image shape {img_card.shape}")
     for a, b in zip(routing_card, held.routing):
@@ -593,23 +617,35 @@ def generator_phase(cfg, state_dict, tfm):
 
 # --- phases 6-7: the training step -------------------------------------------------------
 
+# The opt-in kernels (phase 10) are launched by no default path.
+OPT_IN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "moe_bwd_dx", "moe_bwd_dw2", "moe_bwd_dw1")
 EXPECTED_STEP_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd": 3,
                           "fused_moe_fwd": 10, "fused_moe_bwd": 5,
-                          "moe_combine_fwd": 0, "moe_combine_bwd": 0}
+                          "moe_combine_fwd": 0, "moe_combine_bwd": 0,
+                          **dict.fromkeys(OPT_IN_KERNELS, 0)}
 
 
-def launch_counts(tfa, tfm):
-    return {"flash_attention_fwd": tfa.flash_attention.launches,
-            "flash_attention_bwd": tfa.flash_attention_bwd.launches,
-            "fused_moe_fwd": tfm.fused_moe_ffn.launches,
-            "fused_moe_bwd": tfm.fused_moe_bwd.launches,
-            "moe_combine_fwd": tfm.moe_ffn_combine.launches,
-            "moe_combine_bwd": tfm.moe_ffn_combine_bwd.launches}
+def counters():
+    """{kernel name: its wrapper}; each wrapper counts its launches in `.launches`."""
+    from moegan_tpu_torch.ops import flash_attention as tfa
+    from moegan_tpu_torch.ops import fused_moe as tfm
+    from moegan_tpu_torch.ops import layernorm as tln
+
+    return {"flash_attention_fwd": tfa.flash_attention,
+            "flash_attention_bwd": tfa.flash_attention_bwd,
+            "fused_moe_fwd": tfm.fused_moe_ffn, "fused_moe_bwd": tfm.fused_moe_bwd,
+            "moe_combine_fwd": tfm.moe_ffn_combine, "moe_combine_bwd": tfm.moe_ffn_combine_bwd,
+            "layer_norm_fwd": tln.layer_norm_fwd, "layer_norm_bwd": tln.layer_norm_bwd,
+            "moe_bwd_dx": tfm.moe_bwd_dx, "moe_bwd_dw2": tfm.moe_bwd_dw2,
+            "moe_bwd_dw1": tfm.moe_bwd_dw1}
 
 
-def reset_counts(tfa, tfm):
-    for fn in (tfa.flash_attention, tfa.flash_attention_bwd, tfm.fused_moe_ffn,
-               tfm.fused_moe_bwd, tfm.moe_ffn_combine, tfm.moe_ffn_combine_bwd):
+def launch_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def reset_counts():
+    for fn in counters().values():
         fn.launches = 0
 
 
@@ -627,10 +663,11 @@ def epoch0_schedule(cfg):
             * kl_annealing_factor(0, cfg.loss.kl_annealing_epochs)}
 
 
-def train_phase(tfa, tfm, smi):
+def train_phase(smi, expected=EXPECTED_STEP_LAUNCHES, label="train"):
     """5 steps of the default 64x64 TrainConfig at batch 64 through
     `create_train_state` + `make_train_step`, random weights from the seed and
-    a synthetic batch. Every step's kernel launches are counted on their own."""
+    a synthetic batch. Every step's kernel launches are counted on their own
+    and must be `expected`."""
     from moegan_tpu_torch.config import TrainConfig
     from moegan_tpu_torch.train.state import create_train_state
     from moegan_tpu_torch.train.step import make_train_step
@@ -647,9 +684,9 @@ def train_phase(tfa, tfm, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, launches, all_metrics = [], [], []
-    total = dict.fromkeys(EXPECTED_STEP_LAUNCHES, 0)
+    total = dict.fromkeys(expected, 0)
     for i in range(5):
-        reset_counts(tfa, tfm)
+        reset_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -657,7 +694,7 @@ def train_phase(tfa, tfm, smi):
         end.record()
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(end))
-        counts = launch_counts(tfa, tfm)
+        counts = launch_counts()
         launches.append(counts)
         for k, n in counts.items():
             total[k] += n
@@ -666,8 +703,8 @@ def train_phase(tfa, tfm, smi):
     for i, m in enumerate(all_metrics):
         for k, v in m.items():
             check(bool(np.isfinite(np.asarray(v)).all()), f"train step {i + 1}: {k} = {v}")
-        check(launches[i] == EXPECTED_STEP_LAUNCHES,
-              f"train step {i + 1}: launches {launches[i]}, want {EXPECTED_STEP_LAUNCHES}")
+        check(launches[i] == expected,
+              f"{label} step {i + 1}: launches {launches[i]}, want {expected}")
     unchanged = []
     for k, p in params.items():
         check(bool(torch.isfinite(p).all()), f"train: {k} is not finite after 5 steps")
@@ -687,9 +724,9 @@ def train_phase(tfa, tfm, smi):
            "peak_mem_gib": peak_gib, "unchanged_zero_tensors": unchanged,
            "metrics_step_5": {k: v for k, v in all_metrics[-1].items()
                               if not isinstance(v, list)}, "card": smi}
-    print(f"train 64x64 batch {cfg.batch_size}: {med:.2f} ms/step (median of steps 3-5), "
+    print(f"{label} 64x64 batch {cfg.batch_size}: {med:.2f} ms/step (median of steps 3-5), "
           f"{row['images_per_s']:.1f} images/s, on {smi}", flush=True)
-    print("train " + json.dumps(row), flush=True)
+    print(f"{label} " + json.dumps(row), flush=True)
     return total, row
 
 
@@ -701,7 +738,7 @@ def cosine(a, b):
     return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
 
 
-def train_vs_cpu_phase():
+def train_vs_cpu_phase(label="train_vs_cpu"):
     """One full-width step at batch 4 on the card (kernels, bf16) and on the CPU
     (plain versions, float32) from the same weights, batch and noise. Adam's
     first moment after one step is (1 - b1) times the clipped gradient, so its
@@ -745,19 +782,19 @@ def train_vs_cpu_phase():
             off += p.numel()
         for top, (lo, hi) in spans.items():
             groups[f"{net}.{top}"] = cosine(a[lo:hi], b[lo:hi])
-    print("train_vs_cpu " + json.dumps({"losses_card_cpu": losses, "grad_cosine": groups,
-                                        "cpu_step_s": cpu_s}), flush=True)
+    print(f"{label} " + json.dumps({"losses_card_cpu": losses, "grad_cosine": groups,
+                                    "cpu_step_s": cpu_s}), flush=True)
     # bf16 activations and weights against float32, through two generator
     # passes, four discriminator passes and a double backward: each bf16
     # rounding is 2^-9 relative, a few dozen in sequence.
     for k, (a, b) in losses.items():
         lim = 0.05 * abs(b) + (1e-4 if k == "balance_loss" else 1e-6)
-        check(abs(a - b) <= lim, f"train vs cpu: {k} card {a} cpu {b} (limit {lim})")
+        check(abs(a - b) <= lim, f"{label}: {k} card {a} cpu {b} (limit {lim})")
     # The whole generator's gradient passes through more bf16 roundings (two
     # generator passes and D) than the shallow discriminator's.
     for k, c in groups.items():
         floor = {"generator": 0.95, "discriminator": 0.99}.get(k, 0.9)
-        check(c >= floor, f"train vs cpu: gradient cosine of {k} {c} < {floor}")
+        check(c >= floor, f"{label}: gradient cosine of {k} {c} < {floor}")
     return losses, groups
 
 
@@ -870,10 +907,12 @@ def combine_phase(dev, tfm):
 DIST_RANKS = 2  # data 1 x expert 2
 DIST_STEP_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd": 3,
                       "fused_moe_fwd": 0, "fused_moe_bwd": 0,
-                      "moe_combine_fwd": 10, "moe_combine_bwd": 5}
+                      "moe_combine_fwd": 10, "moe_combine_bwd": 5,
+                      **dict.fromkeys(OPT_IN_KERNELS, 0)}
 DIST_EVAL_LAUNCHES = {"flash_attention_fwd": 3, "flash_attention_bwd": 0,
                       "fused_moe_fwd": 0, "fused_moe_bwd": 0,
-                      "moe_combine_fwd": 5, "moe_combine_bwd": 0}
+                      "moe_combine_fwd": 5, "moe_combine_bwd": 0,
+                      **dict.fromkeys(OPT_IN_KERNELS, 0)}
 DIST_TIMEOUT_S = 600
 
 
@@ -913,8 +952,6 @@ def dist_rank(rank, port, out_dir, batch, noise):
         import moegan_tpu_torch.train.loop as loop_mod
         from moegan_tpu_torch.data.datasets import synthetic_dataset
         from moegan_tpu_torch.losses.gan import kl_annealing_factor, temperature_factor
-        from moegan_tpu_torch.ops import flash_attention as tfa
-        from moegan_tpu_torch.ops import fused_moe as tfm
         from moegan_tpu_torch.parallel.api import setup_distributed_training
 
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -930,10 +967,10 @@ def dist_rank(rank, port, out_dir, batch, noise):
         mesh, state, step = setup_distributed_training(cfg, device="cuda:0")
         result["mesh"] = [list(mesh.shape), mesh.data_index, mesh.expert_index]
         torch.cuda.synchronize()
-        reset_counts(tfa, tfm)
+        reset_counts()
         state, metrics = step(state, batch, sched, noise=noise)
         torch.cuda.synchronize()
-        result["step_launches"] = launch_counts(tfa, tfm)
+        result["step_launches"] = launch_counts()
         result["step_metrics"] = {k: v.tolist() for k, v in metrics.items()}
         result["moments"] = flat_moments(state)
         del state, step
@@ -947,7 +984,7 @@ def dist_rank(rank, port, out_dir, batch, noise):
         def counted(kind, fn):
             def run(*a, **kw):
                 torch.cuda.synchronize()
-                reset_counts(tfa, tfm)
+                reset_counts()
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -955,7 +992,7 @@ def dist_rank(rank, port, out_dir, batch, noise):
                 end.record()
                 torch.cuda.synchronize()
                 calls[kind].append({"ms": start.elapsed_time(end),
-                                    "launches": launch_counts(tfa, tfm)})
+                                    "launches": launch_counts()})
                 return out
             return run
 
@@ -1105,6 +1142,229 @@ def distributed_phase(smi):
     return launches, report
 
 
+# --- phase 10: the opt-in kernel configuration ---------------------------------------------
+
+OPT_IN_FLAGS = {"MOEGAN_FUSED_LN": "1", "MOEGAN_PALLAS_MOE_BWD": "3"}
+OPT_IN_STEP_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd": 3,
+                        "fused_moe_fwd": 10, "fused_moe_bwd": 0,
+                        "moe_combine_fwd": 0, "moe_combine_bwd": 0,
+                        # norm1 and norm3 of 5 blocks in 2 generator forwards; the
+                        # G phase's backward; one legacy backward per MoE block
+                        "layer_norm_fwd": 20, "layer_norm_bwd": 10,
+                        "moe_bwd_dx": 5, "moe_bwd_dw2": 5, "moe_bwd_dw1": 5}
+
+
+@contextlib.contextmanager
+def env_flags(flags):
+    """Set the environment variables `flags` inside the block, restored after it."""
+    saved = {k: os.environ.get(k) for k in flags}
+    os.environ.update(flags)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def layer_norm_phase(dev, tln):
+    """(a) Both LayerNorm kernels against their plain twins at the five norm
+    shapes of the 64x64 step at batch 64 (x [B*T, C] bf16), two calls
+    bit-identical, with times for the kernel, the twin and F.layer_norm."""
+    import torch.nn.functional as F
+
+    fwd_rows, bwd_rows = [], []
+    for res, C in TRAIN_MOE:
+        N = B_TRAIN * res * res
+        g = torch.Generator(device=dev).manual_seed(500 + res)
+        x = (torch.randn((N, C), generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
+        bias = 0.1 * torch.randn(C, generator=g, device=dev)
+        dy = (torch.randn((N, C), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        y, y2 = tln.layer_norm_fwd(x, scale, bias), tln.layer_norm_fwd(x, scale, bias)
+        want = tln.layer_norm(x, scale, bias)
+        got, again = tln.layer_norm_bwd(x, scale, dy), tln.layer_norm_bwd(x, scale, dy)
+        want_b = tln.layer_norm_bwd_reference(x, scale, dy)
+        torch.cuda.synchronize()
+        label = f"layer norm res {res} (N={N}, C={C})"
+        check(torch.equal(y, y2), f"{label}: two forward calls differ")
+        err = (y.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        # Both round fp32 statistics once to bf16; their sums run in other orders.
+        check(err <= 2.0 ** -8 * top, f"{label}: max |y - plain| {err} (max |y| {top})")
+        errs = {"y": [err, top]}
+        for name, a, b, c, lim in zip(("dx", "dscale", "dbias"), got, again, want_b,
+                                      (2 * 2.0 ** -8, 1e-3, 1e-3)):
+            check(torch.equal(a, b), f"{label}: two backward calls give different {name}")
+            e = (a.float() - c.float()).abs().max().item()
+            r = c.float().abs().max().item()
+            # dx: one bf16 rounding of a difference of fp32 means; dscale and
+            # dbias: fp32 sums over N rows in other orders.
+            check(e <= lim * r, f"{label}: max |{name} - plain| {e} > {lim} * {r}")
+            errs[name] = [e, r]
+        sb, bb = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        xr = x.detach().requires_grad_(True)
+        sr, br = sb.detach().requires_grad_(True), bb.detach().requires_grad_(True)
+        ms = time_ms(lambda: tln.layer_norm_fwd(x, scale, bias), 20)
+        plain_ms = time_ms(lambda: tln.layer_norm(x, scale, bias), 10)
+        lib_ms = time_ms(lambda: F.layer_norm(x, (C,), sb, bb, 1e-5), 20)
+        # x read and y written (bf16), scale and bias read; ~8 fp32 operations
+        # per element (two sums, the centring, the square, the scale, the shift)
+        b_ms, b_by = bound_ms(8.0 * N * C, 4.0 * N * C + 8.0 * C, PEAK_FP32_FLOPS)
+        fwd_rows.append(dict(res=res, N=N, C=C, max_abs_err=err, max_abs_ref=top, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms, flops=8.0 * N * C,
+                             bytes=4.0 * N * C + 8.0 * C, bound_ms=b_ms, bound_by=b_by))
+        print("layer_norm_fwd " + json.dumps(fwd_rows[-1]), flush=True)
+        ms = time_ms(lambda: tln.layer_norm_bwd(x, scale, dy), 20)
+        plain_ms = time_ms(lambda: tln.layer_norm_bwd_reference(x, scale, dy), 10)
+        lib_ms = time_ms(lambda: torch.autograd.grad(F.layer_norm(xr, (C,), sr, br, 1e-5),
+                                                     (xr, sr, br), dy), 20)
+        # x and dy read, dx written (bf16), scale read, dscale and dbias
+        # written; ~16 fp32 operations per element
+        nbytes = 6.0 * N * C + 12.0 * C
+        b_ms, b_by = bound_ms(16.0 * N * C, nbytes, PEAK_FP32_FLOPS)
+        bwd_rows.append(dict(res=res, N=N, C=C, max_abs_err=max(e for e, _ in errs.values()),
+                             errs=errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             flops=16.0 * N * C, bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
+        print("layer_norm_bwd " + json.dumps(bwd_rows[-1]), flush=True)
+        del x, dy, y, y2, want, got, again, want_b, xr
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+LEGACY_UNITS = {"moe_bwd_dx": 8.0, "moe_bwd_dw2": 4.0, "moe_bwd_dw1": 6.0}
+
+
+def legacy_moe_phase(dev, tfm):
+    """(b) The three legacy MoE backward entry points, each against its own
+    plain twin at the five MoE blocks of the step at batch 64, two calls
+    bit-identical; then `FusedMoEFunction`'s nine gradients under
+    MOEGAN_PALLAS_MOE_BWD=3 against those under =1."""
+    rows = {name: [] for name in LEGACY_UNITS}
+    names = ("x", "fw", "cw_f", "text_logits", "inv_temp", "w1", "b1", "w2", "b2")
+    for res, C in TRAIN_MOE:
+        T, E, F_ = B_TRAIN * res * res, 4, 4 * C
+        args = moe_args(dev, C, T, seed=400 + res)
+        g = torch.Generator(device=dev).manual_seed(600 + res)
+        dout = (torch.randn((T, C), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        dprobs = torch.randn((T, E), generator=g, device=dev) * 0.1
+        x, fw, cw, tl, it, w1, b1, w2, b2 = args
+        router = C * fw.shape[1] * 2 + fw.shape[1] * E * 4 + T * E * 4 + 4
+        weights = E * C * F_ * 2 + E * F_ * 4
+        for name, fn, ref, inputs, nbytes in (
+                ("moe_bwd_dx", tfm.moe_bwd_dx, tfm.moe_bwd_dx_reference, args,
+                 # x, dout read; W1, b1, W2, b2 read; dx and dp written (fp32)
+                 2 * T * C * 2 + router + 2 * weights + E * C * 4 + T * C * 4 + T * E * 4),
+                ("moe_bwd_dw2", tfm.moe_bwd_dw2, tfm.moe_bwd_dw2_reference, args[:7],
+                 # x, dout, W1, b1 read; dW2 and db2 written (fp32)
+                 2 * T * C * 2 + router + weights + E * F_ * C * 4 + E * C * 4),
+                ("moe_bwd_dw1", tfm.moe_bwd_dw1, tfm.moe_bwd_dw1_reference, args[:8],
+                 # x, dout, W1, b1, W2 read; dW1 and db1 written (fp32)
+                 2 * T * C * 2 + router + weights + E * F_ * C * 2 + E * C * F_ * 4
+                 + E * F_ * 4)):
+            got, again, want = fn(*inputs, dout), fn(*inputs, dout), ref(*inputs, dout)
+            torch.cuda.synchronize()
+            errs = {}
+            for i, (a, b, c) in enumerate(zip(got, again, want)):
+                check(torch.equal(a, b), f"{name} res {res}: two calls give different output {i}")
+                e = (a - c).abs().max().item()
+                r = c.abs().max().item()
+                # As moe_bwd_phase: bf16 p*dout and dz before sums over up to
+                # 262k tokens or 8192 hidden units.
+                check(e <= 2e-2 * r, f"{name} res {res}: output {i} max |err| {e} > 2e-2 * {r}")
+                errs[i] = [e, r]
+            del got, again, want
+            ms = time_ms(lambda: fn(*inputs, dout), 5)
+            plain_ms = time_ms(lambda: ref(*inputs, dout), 3)
+            flops = LEGACY_UNITS[name] * T * C * F_ * E
+            b_ms, b_by = bound_ms(flops, float(nbytes))
+            rows[name].append(dict(res=res, T=T, C=C, F=F_, E=E,
+                                   max_abs_err=max(e for e, _ in errs.values()),
+                                   max_rel_err=max(e / max(r, 1e-30) for e, r in errs.values()),
+                                   errs=errs, ms=ms, plain_ms=plain_ms, flops=flops,
+                                   bytes=float(nbytes), bound_ms=b_ms, bound_by=b_by,
+                                   plan=list(tfm.legacy_kernel_plan(name[8:], T, C, F_, E, dev))))
+            print(f"{name} " + json.dumps(rows[name][-1]), flush=True)
+
+        def grads(mode):
+            with env_flags({"MOEGAN_PALLAS_MOE_BWD": mode}):
+                leaves = [a.detach().requires_grad_(True) for a in args]
+                out, probs = tfm.FusedMoEFunction.apply(*leaves)
+                return torch.autograd.grad((out, probs), leaves, (dout, dprobs))
+
+        legacy, fused = grads("3"), grads("1")
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(names, legacy, fused):
+            e = (a.float() - b.float()).abs().max().item()
+            r = b.float().abs().max().item()
+            # the same gradient, bf16 rounding at other places (p*dout against
+            # p*h): each within moe_bwd_phase's limit of the plain version
+            check(e <= 2e-2 * r, f"FusedMoEFunction res {res}: d{name} under =3 against =1 "
+                                 f"{e} > 2e-2 * {r}")
+            errs[name] = [e, r]
+        print("legacy_vs_fused " + json.dumps({"res": res, "errs": errs}), flush=True)
+        del args, dout, dprobs, legacy, fused
+        torch.cuda.empty_cache()
+    return rows
+
+
+def served_opt_in_phase(cfg, state_dict):
+    """(d) One batch-16 generator call with MOEGAN_FUSED_LN=1 against the default
+    call on the same weights and z, on the card: once free (its own routing,
+    reported) and once pinned to the default call's routing (checked to phase
+    5's limit). Each call launches the LayerNorm forward 10 times."""
+    from moegan_tpu_torch.infer.sample import Sampler
+
+    rng = np.random.default_rng(SEED + 13)
+    z, txt = (torch.from_numpy(rng.standard_normal((N, 512)).astype(np.float32)).cuda()
+              for _ in range(2))
+    psi = torch.linspace(0.5, 1.0, N, device="cuda")
+    card = Sampler(cfg, state_dict, device="cuda")
+    with torch.inference_mode():
+        ref = card.gen(z, txt, psi)
+        with env_flags({"MOEGAN_FUSED_LN": "1"}):
+            reset_counts()
+            free = card.gen(z, txt, psi)
+            torch.cuda.synchronize()
+            free_launches = launch_counts()
+            with pinned_routing([p.float() for p in ref.routing]):
+                held = card.gen(z, txt, psi)
+    raw_ref = ref.image.float().cpu().numpy()
+    stats = {"pinned": image_stats(held.image.float().cpu().numpy(), raw_ref),
+             "free": image_stats(free.image.float().cpu().numpy(), raw_ref),
+             "top1_agreement": [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                                for a, b in zip(free.routing, ref.routing)],
+             "launches": free_launches}
+    print("served_opt_in " + json.dumps(stats), flush=True)
+    check(np.isfinite(held.image.float().cpu().numpy()).all(), "opt-in images are not finite")
+    check(free_launches["layer_norm_fwd"] == 10 and free_launches["layer_norm_bwd"] == 0,
+          f"opt-in generator call: launches {free_launches}")
+    rel = stats["pinned"]["raw_max_rel_diff"]
+    check(rel <= 0.05, f"opt-in generator call against default (pinned routing): {rel} > 0.05")
+    return stats
+
+
+def opt_in_phase(dev, smi, cfg, state_dict):
+    """Phase 10: the JAX package's opt-in kernel configuration, flags set here
+    alone and restored after: (a) LayerNorm kernels, (b) the legacy MoE
+    backward, (c) the training step (5 steps at batch 64, and the batch-4 step
+    against the CPU's under the same flags), (d) one served generator call."""
+    from moegan_tpu_torch.ops import fused_moe as tfm
+    from moegan_tpu_torch.ops import layernorm as tln
+
+    ln_fwd_rows, ln_bwd_rows = layer_norm_phase(dev, tln)
+    legacy_rows = legacy_moe_phase(dev, tfm)
+    with env_flags(OPT_IN_FLAGS):
+        launches, row = train_phase(smi, OPT_IN_STEP_LAUNCHES, "train_opt_in")
+        train_vs_cpu_phase("train_vs_cpu_opt_in")
+    torch.cuda.empty_cache()
+    served_opt_in_phase(cfg, state_dict)
+    return launches, ln_fwd_rows, ln_bwd_rows, legacy_rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU")
@@ -1133,11 +1393,11 @@ def main() -> None:
     try:
         cfg, state_dict = build_model_dir(model_dir)
         serve_phase(model_dir, tfa, tfm)
-        generator_phase(cfg, state_dict, tfm)
+        generator_phase(cfg, state_dict)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    launches, _ = train_phase(tfa, tfm, smi)
+    launches, _ = train_phase(smi)
     train_vs_cpu_phase()
     torch.cuda.empty_cache()
     combine_fwd_rows, combine_bwd_rows = combine_phase(dev, tfm)
@@ -1145,6 +1405,10 @@ def main() -> None:
     dist_launches, _ = distributed_phase(smi)
     for name in ("moe_combine_fwd", "moe_combine_bwd"):
         launches[name] = dist_launches[name]
+    torch.cuda.empty_cache()
+    opt_launches, ln_fwd_rows, ln_bwd_rows, legacy_rows = opt_in_phase(dev, smi, cfg, state_dict)
+    for name in OPT_IN_KERNELS:
+        launches[name] = opt_launches[name]
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -1169,17 +1433,34 @@ def main() -> None:
          "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
          "moegan_tpu/ops/fused_moe.py:1075; moegan_tpu/ops/fused_moe.py:1261", False,
          "training, batch 64, E_local 2 (expert parallelism 2)"),
+        ("layer_norm_fwd", ln_fwd_rows, "moegan_tpu_torch/ops/csrc/layer_norm.cu",
+         "moegan_tpu/ops/fused_layernorm.py:44", True,
+         "training, batch 64, one norm per block, MOEGAN_FUSED_LN=1"),
+        ("layer_norm_bwd", ln_bwd_rows, "moegan_tpu_torch/ops/csrc/layer_norm.cu",
+         "moegan_tpu/ops/fused_layernorm.py:54", True,
+         "training, batch 64, one norm per block, MOEGAN_FUSED_LN=1"),
+        ("moe_bwd_dx", legacy_rows["moe_bwd_dx"], "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
+         "moegan_tpu/ops/fused_moe.py:239", False,
+         "training, batch 64, MOEGAN_PALLAS_MOE_BWD=3"),
+        ("moe_bwd_dw2", legacy_rows["moe_bwd_dw2"], "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
+         "moegan_tpu/ops/fused_moe.py:282", False,
+         "training, batch 64, MOEGAN_PALLAS_MOE_BWD=3"),
+        ("moe_bwd_dw1", legacy_rows["moe_bwd_dw1"], "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
+         "moegan_tpu/ops/fused_moe.py:310", False,
+         "training, batch 64, MOEGAN_PALLAS_MOE_BWD=3"),
     ):
-        ops_ms = sum(r["flops"] for r in rows) / PEAK_BF16_FLOPS * 1e3
+        peak = PEAK_FP32_FLOPS if name.startswith("layer_norm") else PEAK_BF16_FLOPS
+        ops_ms = sum(r["flops"] for r in rows) / peak * 1e3
         bytes_ms = sum(r["bytes"] for r in rows) / PEAK_BYTES * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            # launches: the 5 single-device training steps (phase 6), or, for
-            # the combine kernels, rank 0's 3 distributed steps and its
-            # validation batch (phase 9)
+            # launches: the 5 single-device training steps (phase 6); for the
+            # combine kernels, rank 0's 3 distributed steps and its validation
+            # batch (phase 9); for the opt-in kernels, the 5 steps of phase 10
             "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
             # times and bounds: the sum over the shapes of one generator call
-            # (forwards) or one training step's backward (backwards)
+            # (forwards), one training step's backward (backwards) or one
+            # norm in each of the five blocks (LayerNorm)
             "ms": total(rows, "ms"), "plain_ms": total(rows, "plain_ms"),
             "bound_ms": total(rows, "bound_ms"),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",

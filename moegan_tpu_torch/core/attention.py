@@ -13,7 +13,9 @@ that, plain attention with fp32 logits, probs cast to the compute dtype and
 PV accumulated in fp32. Cross-attention over one text
 token is exactly the value projection broadcast over every query
 (`MOEGAN_CROSS_T1`, on by default in the JAX package), so norm2, wq/wk and
-bq/bk are kept as parameters for checkpoint parity but not computed.
+bq/bk are kept as parameters for checkpoint parity but not computed. The
+norms are `FusedLayerNorm`, as in the JAX block: the LayerNorm kernels
+under `MOEGAN_FUSED_LN=1`, the plain version otherwise.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from moegan_tpu_torch.core import inits
 from moegan_tpu_torch.core.modconv import ModulatedConv
 from moegan_tpu_torch.core.moe import SparseMoE
 from moegan_tpu_torch.ops.flash_attention import FlashAttentionFunction, flash_attention
-from moegan_tpu_torch.ops.layernorm import LayerNorm
+from moegan_tpu_torch.ops.layernorm import FusedLayerNorm
 
 FLASH_MIN_T = 256
 
@@ -86,15 +88,15 @@ class AttentionBlock(nn.Module):
         gen = inits.default_generator(gen)
         cd = compute_dtype
         self.proj_in = ModulatedConv(dim, dim, 1, latent_dim, compute_dtype=cd, gen=gen)
-        self.norm1 = LayerNorm(dim)
+        self.norm1 = FusedLayerNorm(dim)
         self.self_attn = MultiHeadAttention(dim, heads, cd, gen)
         self.text_proj = nn.Linear(text_dim, dim)
         with torch.no_grad():
             self.text_proj.weight.copy_(inits.torch_linear_kernel((text_dim, dim), gen).t())
             self.text_proj.bias.copy_(inits.torch_linear_bias((dim,), gen, text_dim))
-        self.norm2 = LayerNorm(dim)
+        self.norm2 = FusedLayerNorm(dim)
         self.cross_attn = MultiHeadAttention(dim, heads, cd, gen)
-        self.norm3 = LayerNorm(dim)
+        self.norm3 = FusedLayerNorm(dim)
         self.moe = SparseMoE(dim, latent_dim, num_experts, router_hidden, cd, gen)
         self.proj_out = ModulatedConv(dim, dim, 1, latent_dim, compute_dtype=cd, gen=gen)
 

@@ -63,12 +63,22 @@ def images_to_b64_pngs(images_m11) -> list[str]:
 
 
 def find_model_file(model_dir: str) -> Optional[str]:
-    """The first `.npz` under model_dir (sorted walk), else the first `.msgpack`."""
-    for suffix in (".npz", ".msgpack"):
-        for root, _, files in sorted(os.walk(model_dir)):
-            for f in sorted(files):
-                if f.endswith(suffix):
-                    return os.path.join(root, f)
+    """The saved model in model_dir, searched in the JAX package's order
+    (moegan_tpu/infer/serving.py::find_model_file): `aurora_model_final.msgpack`
+    at the top, then the first `.msgpack` or `.npz` of a top-down walk (files
+    sorted within each directory), then an orbax step directory (`default` or
+    all digits). The port reads only `.npz` (`load_generator_params`)."""
+    canonical = os.path.join(model_dir, "aurora_model_final.msgpack")
+    if os.path.exists(canonical):
+        return canonical
+    for root, _, files in os.walk(model_dir):
+        for f in sorted(files):
+            if f.endswith((".msgpack", ".npz")):
+                return os.path.join(root, f)
+    for root, dirs, _ in os.walk(model_dir):
+        for d in sorted(dirs):
+            if d == "default" or d.isdigit():
+                return os.path.join(root, d)
     return None
 
 

@@ -27,7 +27,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "fused_moe.cu", "fused_moe_bwd.cu")
+SOURCES = (
+    "flash_attention.cu", "flash_attention_bwd.cu", "fused_moe.cu", "fused_moe_bwd.cu",
+    "layer_norm.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -31,10 +31,26 @@ rank's local expert columns) and there is no router chain. The forward and
 backward kernels above serve it, instantiated without their router
 (`moegan_moe_combine_fwd`, `moegan_moe_combine_bwd`).
 
+The legacy three-kernel backward of the JAX package (`MOEGAN_PALLAS_MOE_BWD=3`)
+replaces its TPU kernels `_bwd_dx_kernel`, `_bwd_dw2_kernel` and
+`_bwd_dw1_kernel` (launched by `_fused_moe_bwd_pallas`) with three entry
+points of `csrc/fused_moe_bwd.cu`: `moe_bwd_dx`, `moe_bwd_dw2` and
+`moe_bwd_dw1`, each recomputing the routing, z and h for itself and
+rounding where its TPU kernel rounds (plain twins `moe_bwd_dx_reference`,
+`moe_bwd_dw2_reference`, `moe_bwd_dw1_reference`).
+
+`FusedMoEFunction.backward` and `MoECombineFunction.backward` read
+`MOEGAN_PALLAS_MOE_BWD` at call time, as the JAX package reads it at trace
+time (`_fused_bwd`, `_combine_vjp_bwd`): "1" or unset, the backward kernel
+above; "3", the three legacy entry points (the combine keeps its kernel);
+"0", the plain recompute through autograd of `moe_ffn_reference` (or
+`moe_ffn_combine_reference`), an explicit mode that nothing selects unless
+the caller sets it. Other values raise.
+
 Dispatch: a CPU tensor takes the plain version (`moe_ffn_reference`,
 `moe_ffn_bwd_reference`, `moe_ffn_combine_reference`,
-`moe_ffn_combine_bwd_reference`); a CUDA tensor launches the kernel or
-raises. There is no fallback between the two.
+`moe_ffn_combine_bwd_reference` and the legacy twins); a CUDA tensor
+launches the kernel or raises. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -42,6 +58,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 
 import torch
 
@@ -52,6 +69,13 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """erf-GELU in float32 (torch nn.GELU default)."""
     xf = x.float()
     return 0.5 * xf * (1.0 + torch.erf(xf * (1.0 / math.sqrt(2.0))))
+
+
+def gelu_grad(z: torch.Tensor) -> torch.Tensor:
+    """d/dz of the erf-GELU in float32: Phi(z) + z * phi(z) (`_gelu_grad`)."""
+    zf = z.float()
+    return 0.5 * (1.0 + torch.erf(zf * (1.0 / math.sqrt(2.0)))) + zf * (
+        torch.exp(-0.5 * zf * zf) / math.sqrt(2.0 * math.pi))
 
 
 def routing_probs(logits: torch.Tensor, hard: bool) -> torch.Tensor:
@@ -101,13 +125,64 @@ def moe_ffn_bwd_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, do
         return torch.autograd.grad(out, leaves, dout.float())
 
 
+# --- the legacy three-kernel backward (MOEGAN_PALLAS_MOE_BWD=3): plain twins -----------
+
+
+def _legacy_recompute(x, fw, cw_f, text_logits, inv_temp, w1, b1):
+    """(probs [T, E], z [E, T, F] fp32, h [E, T, F] in x's dtype), as the TPU
+    kernels' `_probs_and_expert_tile` recomputes them."""
+    cd = x.dtype
+    probs = router_probs(x, fw, cw_f, text_logits, inv_temp)
+    z = torch.einsum("tc,ecf->etf", x.float(), w1.to(cd).float()) + b1.float()[:, None, :]
+    return probs, z, gelu_exact(z).to(cd)
+
+
+def _legacy_dz(probs, z, w2, dout, cd):
+    """dz [E, T, F] fp32 = (bf16(p_e * dout) W2_e^T) * gelu'(z), the product's
+    inputs rounded to `cd` as the TPU kernels round them."""
+    dy = (probs.t()[:, :, None] * dout.float()[None]).to(cd).float()
+    return torch.einsum("etc,efc->etf", dy, w2.to(cd).float()) * gelu_grad(z)
+
+
+def moe_bwd_dx_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
+    """Plain version of `moe_bwd_dx` (`_bwd_dx_kernel`): (dx_ffn [T, C],
+    dp [T, E]) in fp32, dx_ffn = sum_e bf16(dz_e) W1_e^T and
+    dp[t, e] = <dout_t, h_e W2_e + b2_e>."""
+    cd = x.dtype
+    probs, z, h = _legacy_recompute(x, fw, cw_f, text_logits, inv_temp, w1, b1)
+    y = torch.einsum("etf,efc->etc", h.float(), w2.to(cd).float()) + b2.float()[:, None, :]
+    dp = torch.einsum("tc,etc->te", dout.float(), y)
+    dz = _legacy_dz(probs, z, w2, dout, cd)
+    return torch.einsum("etf,ecf->tc", dz.to(cd).float(), w1.to(cd).float()), dp
+
+
+def moe_bwd_dw2_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout):
+    """Plain version of `moe_bwd_dw2` (`_bwd_dw2_kernel`): (dW2 [E, F, C],
+    db2 [E, C]) in fp32, dW2_e = h_e^T bf16(p_e dout), db2_e = sum_t p_e dout."""
+    probs, _, h = _legacy_recompute(x, fw, cw_f, text_logits, inv_temp, w1, b1)
+    pd = probs.t()[:, :, None] * dout.float()[None]
+    return torch.einsum("etf,etc->efc", h.float(), pd.to(x.dtype).float()), pd.sum(1)
+
+
+def moe_bwd_dw1_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, dout):
+    """Plain version of `moe_bwd_dw1` (`_bwd_dw1_kernel`): (dW1 [E, C, F],
+    db1 [E, F]) in fp32, dW1_e = x^T bf16(dz_e), db1_e = sum_t dz_e."""
+    cd = x.dtype
+    probs, z, _ = _legacy_recompute(x, fw, cw_f, text_logits, inv_temp, w1, b1)
+    dz = _legacy_dz(probs, z, w2, dout, cd)
+    return torch.einsum("tc,etf->ecf", x.float(), dz.to(cd).float()), dz.sum(1)
+
+
 def _check_tensors(want: dict) -> None:
     """Raise unless every tensor of `want` (name: (tensor, dtype, shape), x and
-    the FFN weights among them) has the kernels' type, shape and layout."""
+    the FFN weights among them) has the kernels' type, shape and layout; a
+    None tensor (a weight an entry point does not read) is skipped."""
     x, w1 = want["x"][0], want["w1"][0]
     C = x.shape[1]
     E, _, F = w1.shape
     for name, (t, dtype, shape) in want.items():
+        if t is None:
+            continue
         if t.dtype != dtype or tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
         if t.device != x.device:
@@ -289,6 +364,147 @@ def _bwd_plan(T: int, C: int, F: int, E: int, sms: int) -> tuple[int, int, int, 
     return tuple(plan)
 
 
+# --- the legacy three-kernel backward: the CUDA entry points ------------------------------
+
+_LEGACY_MODES = {"dx": 0, "dw2": 1, "dw1": 2}
+
+
+def legacy_kernel_plan(which: str, T: int, C: int, F: int, E: int, device) -> tuple[int, ...]:
+    """(token tile, F-chunk, splits, weight-gradient T-splits) of a legacy entry point."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _legacy_plan(_LEGACY_MODES[which], T, C, F, E, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _legacy_plan(mode: int, T: int, C: int, F: int, E: int, sms: int) -> tuple[int, ...]:
+    lib = _build.load("fused_moe_bwd")
+    plan = (ctypes.c_int * 4)()
+    fn = lib.moegan_moe_legacy_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    if not fn(mode, T, C, F, E, sms, plan):
+        raise ValueError(f"no tile fits shared memory at C={C}, F={F}, E={E}")
+    return tuple(plan)
+
+
+def _legacy_inputs(which, x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
+    """Check the inputs of a legacy entry point on CUDA (w2 and b2 None where it
+    reads none); returns (plan, its input tensors in the C entry point's order,
+    inv_temp as [1] and dout in x's dtype)."""
+    inv_temp = inv_temp.reshape(1)
+    _check_cuda_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2)
+    dout = dout.to(x.dtype).contiguous()
+    if dout.shape != x.shape:
+        raise ValueError(f"dout: want {tuple(x.shape)}, got {tuple(dout.shape)}")
+    T, C = x.shape
+    E, _, F = w1.shape
+    inputs = [t for t in (x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout)
+              if t is not None]
+    return legacy_kernel_plan(which, T, C, F, E, x.device), inputs
+
+
+def _legacy_run(which, plan, inputs, buffers):
+    """Launch `moegan_moe_bwd_<which>` on its inputs (x, fw and w1 first) and
+    buffers (scratch then outputs; None for an unused scratch)."""
+    x, fw, w1 = inputs[0], inputs[1], inputs[5]
+    T, C = x.shape
+    E, _, F = w1.shape
+    lib = _build.load("fused_moe_bwd")
+    fn = getattr(lib, f"moegan_moe_bwd_{which}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * (len(inputs) + len(buffers)) + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    rc = fn(*_ptrs(*inputs, *buffers), T, C, fw.shape[-1], E, F, (ctypes.c_int * 4)(*plan),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, f"moe_bwd_{which}")
+
+
+def moe_bwd_dx(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
+    """(dx_ffn [T, C], dp [T, E]) in fp32 through the kernel that replaces
+    `_bwd_dx_kernel`, as `moe_bwd_dx_reference`. Inputs as `fused_moe_bwd`."""
+    if x.device.type == "cpu":
+        return moe_bwd_dx_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_bwd_dx runs on cpu or cuda tensors, got {x.device}")
+    plan, inputs = _legacy_inputs("dx", x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout)
+    T, C = x.shape
+    E = w1.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ws_dx, ws_dp = torch.empty((plan[2], T, C), **f32), torch.empty((plan[2], T, E), **f32)
+    dx, dp = torch.empty((T, C), **f32), torch.empty((T, E), **f32)
+    _legacy_run("dx", plan, inputs, (ws_dx, ws_dp, dx, dp))
+    moe_bwd_dx.launches += 1
+    return dx, dp
+
+
+moe_bwd_dx.launches = 0
+
+
+def moe_bwd_dw2(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout):
+    """(dW2 [E, F, C], db2 [E, C]) in fp32 through the kernel that replaces
+    `_bwd_dw2_kernel`, as `moe_bwd_dw2_reference`."""
+    if x.device.type == "cpu":
+        return moe_bwd_dw2_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_bwd_dw2 runs on cpu or cuda tensors, got {x.device}")
+    plan, inputs = _legacy_inputs("dw2", x, fw, cw_f, text_logits, inv_temp, w1, b1, None,
+                                  None, dout)
+    T, C = x.shape
+    E, _, F = w1.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    bf = dict(dtype=x.dtype, device=x.device)
+    h, dy = torch.empty((T, E * F), **bf), torch.empty((T, E * C), **bf)
+    part = torch.empty((-(-T // plan[0]), E * C), **f32)
+    ws_w = torch.empty((E, plan[3], F, C), **f32) if plan[3] > 1 else None
+    dw2, db2 = torch.empty((E, F, C), **f32), torch.empty((E, C), **f32)
+    _legacy_run("dw2", plan, inputs, (h, dy, part, ws_w, dw2, db2))
+    moe_bwd_dw2.launches += 1
+    return dw2, db2
+
+
+moe_bwd_dw2.launches = 0
+
+
+def moe_bwd_dw1(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, dout):
+    """(dW1 [E, C, F], db1 [E, F]) in fp32 through the kernel that replaces
+    `_bwd_dw1_kernel`, as `moe_bwd_dw1_reference`."""
+    if x.device.type == "cpu":
+        return moe_bwd_dw1_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, dout)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_bwd_dw1 runs on cpu or cuda tensors, got {x.device}")
+    plan, inputs = _legacy_inputs("dw1", x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, None,
+                                  dout)
+    T, C = x.shape
+    E, _, F = w1.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dz = torch.empty((T, E * F), dtype=x.dtype, device=x.device)
+    part = torch.empty((-(-T // plan[0]), E * F), **f32)
+    ws_w = torch.empty((plan[3], C, E * F), **f32) if plan[3] > 1 else None
+    dw1s, db1 = torch.empty((C, E * F), **f32), torch.empty((E, F), **f32)
+    _legacy_run("dw1", plan, inputs, (dz, part, ws_w, dw1s, db1))
+    moe_bwd_dw1.launches += 1
+    return dw1s.reshape(C, E, F).permute(1, 0, 2), db1
+
+
+moe_bwd_dw1.launches = 0
+
+
+def moe_bwd_mode() -> str:
+    """`MOEGAN_PALLAS_MOE_BWD` at call time: "1" (the default, the backward
+    kernel), "3" (the legacy three entry points) or "0" (plain recompute)."""
+    mode = os.environ.get("MOEGAN_PALLAS_MOE_BWD", "1")
+    if mode not in ("0", "1", "3"):
+        raise ValueError(f"MOEGAN_PALLAS_MOE_BWD={mode!r}: the port reads '0', '1' or '3'")
+    return mode
+
+
+def _recompute_grads(fn, inputs, cotangents):
+    """The gradients of `fn(*inputs)` for `cotangents` by autograd (mode "0")."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, cotangents)
+
+
 class FusedMoEFunction(torch.autograd.Function):
     """Differentiable `fused_moe_ffn` under soft routing -> (out, probs).
 
@@ -303,8 +519,19 @@ class FusedMoEFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, dprobs):
-        x, fw, cw_f, tl, it, w1, b1, w2, b2 = ctx.saved_tensors
-        dx_ffn, dp, dw1, db1, dw2, db2 = fused_moe_bwd(x, fw, cw_f, tl, it, w1, b1, w2, b2, dout)
+        saved = ctx.saved_tensors
+        x, fw, cw_f, tl, it, w1, b1, w2, b2 = saved
+        mode = moe_bwd_mode()
+        if mode == "0":
+            return _recompute_grads(lambda *a: moe_ffn_reference(*a, hard=False), saved,
+                                    (dout, dprobs))
+        if mode == "3":
+            dx_ffn, dp = moe_bwd_dx(x, fw, cw_f, tl, it, w1, b1, w2, b2, dout)
+            dw2, db2 = moe_bwd_dw2(x, fw, cw_f, tl, it, w1, b1, dout)
+            dw1, db1 = moe_bwd_dw1(x, fw, cw_f, tl, it, w1, b1, w2, dout)
+        else:
+            dx_ffn, dp, dw1, db1, dw2, db2 = fused_moe_bwd(x, fw, cw_f, tl, it, w1, b1, w2, b2,
+                                                           dout)
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in (x, fw, cw_f, tl, it)]
             probs = router_probs(*leaves)
@@ -417,6 +644,8 @@ class MoECombineFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, probs, w1, b1, w2, b2 = ctx.saved_tensors
+        if moe_bwd_mode() == "0":
+            return _recompute_grads(moe_ffn_combine_reference, ctx.saved_tensors, (dout,))
         dx, dp, dw1, db1, dw2, db2 = moe_ffn_combine_bwd(x, probs, w1, b1, w2, b2, dout)
         return (dx.to(x.dtype), dp.to(probs.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
                 dw2.to(w2.dtype), db2.to(b2.dtype))

@@ -9,7 +9,10 @@ kernel and the device's busy share.
 
 Run from the repository root on a machine with a CUDA device:
     python3 scripts/torch_train_profile.py [--batch 64] [--top 20]
-It prints the card's name and power limit, then one JSON line.
+It prints the card's name and power limit, then one JSON line. The opt-in
+kernel configuration (the LayerNorm kernels and the legacy three-kernel MoE
+backward) is profiled with `MOEGAN_FUSED_LN=1 MOEGAN_PALLAS_MOE_BWD=3` in the
+environment; the JSON line names the two flags as it found them.
 """
 
 from __future__ import annotations
@@ -71,7 +74,9 @@ def main() -> None:
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:args.top]
     print(json.dumps({
-        "batch": cfg.batch_size, "wall_ms_median": statistics.median(walls), "wall_ms": walls,
+        "batch": cfg.batch_size,
+        "flags": {k: os.environ.get(k) for k in ("MOEGAN_FUSED_LN", "MOEGAN_PALLAS_MOE_BWD")},
+        "wall_ms_median": statistics.median(walls), "wall_ms": walls,
         "images_per_s": cfg.batch_size / statistics.median(walls) * 1e3,
         "profiled_wall_ms": prof_wall, "device_ms": device_ms,
         "device_busy_share": device_ms / prof_wall, "kernel_launches": sum(e.count for e in events),

@@ -11,6 +11,7 @@ import torch
 
 from moegan_tpu_torch.ops import flash_attention as tfa
 from moegan_tpu_torch.ops import fused_moe as tfm
+from moegan_tpu_torch.ops import layernorm as tln
 from torch_helpers import MOE_ORDER, moe_inputs, t  # tests/ is on sys.path under pytest
 
 
@@ -146,3 +147,52 @@ def test_moe_combine_bwd_kernel_matches_plain_on_card(cuda_device, E, C, T):
         # fused MoE backward: within 2e-2 of the largest |grad|.
         scale = z.abs().max().item()
         torch.testing.assert_close(x, z, atol=2e-2 * scale, rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,dtype", [(1000, 32, torch.bfloat16), (257, 512, torch.bfloat16),
+                                       (300, 96, torch.float32)])
+def test_layer_norm_kernels_match_plain_on_card(cuda_device, N, C, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(N + C)
+    x = (torch.randn((N, C), generator=g, device=cuda_device) * 2 + 0.5).to(dtype)
+    scale = 1 + 0.1 * torch.randn(C, generator=g, device=cuda_device)
+    bias = 0.1 * torch.randn(C, generator=g, device=cuda_device)
+    dy = torch.randn((N, C), generator=g, device=cuda_device).to(dtype)
+    y, y2 = tln.layer_norm_fwd(x, scale, bias), tln.layer_norm_fwd(x, scale, bias)
+    got, again = tln.layer_norm_bwd(x, scale, dy), tln.layer_norm_bwd(x, scale, dy)
+    want_y = tln.layer_norm(x, scale, bias)
+    want = tln.layer_norm_bwd_reference(x, scale, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    # one rounding to x's type, fp32 statistics summed in other orders
+    atol = 2.0 ** -8 * want_y.float().abs().max().item()
+    torch.testing.assert_close(y.float(), want_y.float(), atol=atol, rtol=0)
+    for name, a, b, c, lim in zip(("dx", "dscale", "dbias"), got, again, want,
+                                  (2 * 2.0 ** -8, 1e-3, 1e-3)):
+        assert torch.equal(a, b), f"{name}: two calls differ"
+        torch.testing.assert_close(a.float(), c.float(), rtol=0,
+                                   atol=lim * c.float().abs().max().item(), msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,T", [(512, 100), (32, 1000)])
+def test_legacy_moe_bwd_kernels_match_plain_on_card(cuda_device, C, T):
+    a = moe_inputs(seed=C + 2, T=T, C=C, F=4 * C, h=128)
+    bf = {"x", "fw", "w1", "w2"}
+    args = [t(a[k]).to(cuda_device, torch.bfloat16 if k in bf else torch.float32)
+            if k != "inv_temp" else torch.full((1,), a[k], device=cuda_device) for k in MOE_ORDER]
+    x, fw, cw, tl, it, w1, b1, w2, b2 = args
+    g = torch.Generator(device=cuda_device).manual_seed(C + 1)
+    dout = torch.randn((T, C), generator=g, device=cuda_device).to(torch.bfloat16)
+    for name, fn, ref, inputs in (
+            ("dx", tfm.moe_bwd_dx, tfm.moe_bwd_dx_reference, args),
+            ("dw2", tfm.moe_bwd_dw2, tfm.moe_bwd_dw2_reference, args[:7]),
+            ("dw1", tfm.moe_bwd_dw1, tfm.moe_bwd_dw1_reference, args[:8])):
+        got, again, want = fn(*inputs, dout), fn(*inputs, dout), ref(*inputs, dout)
+        torch.cuda.synchronize()
+        for i, (u, v, w) in enumerate(zip(got, again, want)):
+            assert torch.equal(u, v), f"{name}[{i}]: two calls differ"
+            # bf16 dz (and bf16 p*dout) before sums over T tokens or 4C hidden
+            # units, summed in other orders: within 2e-2 of the largest |grad|
+            torch.testing.assert_close(u, w, rtol=0, atol=2e-2 * w.abs().max().item(),
+                                       msg=f"{name}[{i}]")

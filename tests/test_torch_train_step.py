@@ -17,8 +17,8 @@ the CPU compiles it in a second instead of the ~30 s it takes over the
 tiny generator's 192 leaves, which keeps this file inside its time budget.
 """
 
+import os
 from unittest import mock
-
 
 import jax
 import jax.numpy as jnp
@@ -78,8 +78,17 @@ def _raveled_optimizers(cfg, steps_per_epoch):
     return tuple(_raveled(tx) for tx in jax_make_optimizers(cfg, steps_per_epoch))
 
 
+# The port's step runs under its default flags and under the JAX package's
+# opt-in kernel configuration (the LayerNorm kernels and the legacy
+# three-kernel MoE backward; on the CPU their plain twins). JAX on the CPU
+# takes its XLA routes under either flag, so its one step is the reference
+# for both.
+FLAGS = {"default": {}, "opt_in": {"MOEGAN_FUSED_LN": "1", "MOEGAN_PALLAS_MOE_BWD": "3"}}
+
+
 @pytest.fixture(scope="module")
-def one_step():
+def jax_one_step():
+    """The inputs of the step and the JAX step's result, computed once."""
     cfg = TrainConfig.from_dict(JAX_CFG.to_dict())
     state = create_train_state(cfg, device="cpu", seed=3)
     before = {"g": {k: v.clone() for k, v in state.generator.state_dict().items()},
@@ -104,10 +113,24 @@ def one_step():
         jsched = {k: jnp.float32(v) for k, v in SCHED.items()}
         jstate, jm = jax.jit(jstep)(jstate, batch, rng, jsched)
     assert sorted(calls.values()) == [2, 2, 2]  # each router: the D phase, then the G phase
+    return dict(cfg=cfg, before=before, batch=batch, noise=noise, jstate=jstate, jm=jm)
 
-    step = make_train_step(cfg)
-    state, metrics = step(state, {k: t(v) for k, v in batch.items()}, SCHED, noise=noise)
-    return dict(state=state, metrics=metrics, before=before, jstate=jstate, jm=jm)
+
+@pytest.fixture(scope="module", params=sorted(FLAGS))
+def one_step(request, jax_one_step):
+    """The port's step from the same weights, batch and noise, under one flag set."""
+    j = jax_one_step
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MOEGAN_FUSED_LN", "MOEGAN_PALLAS_MOE_BWD")}
+    with mock.patch.dict(os.environ, {**env, **FLAGS[request.param]}, clear=True):
+        state = create_train_state(j["cfg"], device="cpu", seed=3)
+        for k, v in state.generator.state_dict().items():
+            assert torch.equal(v, j["before"]["g"][k])
+        step = make_train_step(j["cfg"])
+        state, metrics = step(state, {k: t(v) for k, v in j["batch"].items()}, SCHED,
+                              noise=j["noise"])
+    return dict(state=state, metrics=metrics, before=j["before"], jstate=j["jstate"],
+                jm=j["jm"])
 
 
 @pytest.mark.parametrize("name", ["d_loss", "r1_loss", "d_total", "g_total", "g_loss",
