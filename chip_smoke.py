@@ -7,16 +7,22 @@ device and nvcc (it builds the port's kernels from `moegan_tpu_torch/ops/csrc`).
 It imports nothing of JAX or of the JAX package. Phases, each fatal on
 failure (non-zero exit, no result line):
 
-1. the card's name and power limit; build the CUDA kernels (one nvcc
-   process per source, started together);
+1. the card's name, power limit and SM clock limit; build the CUDA kernels
+   (one nvcc process per source, started together);
 2. each forward kernel against its plain PyTorch version on the card, in
    bf16, at every shape the serving path gives it at batch 16, with times
    (CUDA events) for the kernel, the plain version and, for attention,
-   `F.scaled_dot_product_attention` as a yardstick;
+   `F.scaled_dot_product_attention` as a yardstick, and for attention also
+   the device time alone (20 calls replayed from a CUDA graph) and the
+   exponential floor (B*H*T^2 exponentials over an assumed 16 per SM per
+   clock at the SM clock limit), printed on each shape's line;
 3. each backward kernel against its plain version at every shape the
    training step gives it at batch 64 (flash: dq, dk, dv, SDPA forward +
-   backward as the yardstick; MoE: all nine gradients of `FusedMoEFunction`
-   against the autograd of `moe_ffn_reference`), two calls bit-identical;
+   backward as the yardstick, the exponential floor of the function's
+   B*H*T^2 exponentials, the forward's o and lse and its times with and
+   without lse beside SDPA's forward without and with grad; MoE: all
+   nine gradients of `FusedMoEFunction` against the autograd of
+   `moe_ffn_reference`), two calls bit-identical;
 4. the served slice: the default 64x64 generator built from a seed, written
    as `.npz` + `generator_config.json`, loaded by the port's
    `InferenceHandler`, served over HTTP on 127.0.0.1; one lone /generate
@@ -67,6 +73,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -120,9 +127,53 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per call: `reps` calls captured in one CUDA graph, one replay
+    timed with CUDA events after a warm-up replay. Unlike `time_ms`, this
+    leaves out the host's cost per call, which bounds small calls."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up on a side stream before capture
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# Hopper's SFU rate, assumed: ex2 results per SM per clock.
+# scripts/torch_mma_ex2_rates.py measures the card's rate.
+EX2_PER_SM_CLOCK = 16
+
+
+@functools.cache
+def sm_clock_mhz() -> float:
+    """The card's SM clock limit, as `nvidia-smi --query-gpu=clocks.max.sm` reads it."""
+    query = ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]
+    out = subprocess.run(query, capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0])
+
+
+def exp_floor_ms(exps: float) -> float:
+    """Least time for `exps` exponentials on the SFUs of every SM at the SM clock limit."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (EX2_PER_SM_CLOCK * sms * sm_clock_mhz() * 1e6) * 1e3
 
 
 # --- phase 2: kernels against their plain versions -------------------------------------
@@ -161,13 +212,20 @@ def flash_phase(dev, tfa):
         ms = time_ms(lambda: tfa.flash_attention(q, k, v), 20)
         plain_ms = time_ms(lambda: tfa.flash_attention_reference(q, k, v), 5)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+        dev_ms = graph_ms(lambda: tfa.flash_attention(q, k, v), 20)
+        lib_dev_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
         flops = 4.0 * N * H * T * T * D
         nbytes = 4.0 * N * T * H * D * 2  # q, k, v read once, o written once, bf16
         b_ms, b_by = bound_ms(flops, nbytes)
-        rows.append(dict(res=res, B=N, T=T, H=H, D=D, max_abs_err=err, max_abs_ref=o_max,
-                         tol=tol, lse_max_abs_err=lse_err,
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, flops=flops, bytes=nbytes,
-                         exps=float(N * H * T * T), bound_ms=b_ms, bound_by=b_by))
+        exps = float(N * H * T * T)
+        rows.append(dict(res=res, B=N, T=T, H=H, D=D,
+                         block_q=tfa.flash_plan(N, H, T, D, torch.cuda.get_device_properties(0)
+                                                 .multi_processor_count),
+                         max_abs_err=err, max_abs_ref=o_max, tol=tol, lse_max_abs_err=lse_err,
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
+                         library_device_ms=lib_dev_ms, flops=flops, bytes=nbytes,
+                         exps=exps, exp_floor_ms=exp_floor_ms(exps), bound_ms=b_ms,
+                         bound_by=b_by))
         print("flash_attention_fwd " + json.dumps(rows[-1]), flush=True)
     return rows
 
@@ -310,6 +368,24 @@ def flash_bwd_phase(dev, tfa):
               f"flash fwd res {res} batch {B_TRAIN}: max |o - plain| {o_err} (max |o| {o_max})")
         check(lse_err <= lse_tol,
               f"flash fwd res {res} batch {B_TRAIN}: max |lse - plain| {lse_err} > {lse_tol}")
+        # The forward as the step launches it: 3 calls without lse (the D
+        # phase's fake), 3 with (under autograd), beside SDPA's forward
+        # without grad and with grad (where it keeps its logsumexp).
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        fwd_ms = time_ms(lambda: tfa.flash_attention(q, k, v), 10)
+        fwd_lse_ms = time_ms(lambda: tfa.flash_attention(q, k, v, with_lse=True), 10)
+        fwd_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+        fwd_dev_ms = graph_ms(lambda: tfa.flash_attention(q, k, v), 10)
+        fwd_lse_dev_ms = graph_ms(lambda: tfa.flash_attention(q, k, v, with_lse=True), 10)
+        fwd_lib_dev_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+
+        def sdpa_fwd_grad():
+            with torch.enable_grad():
+                F.scaled_dot_product_attention(qg, kg, vg)
+
+        fwd_lse_lib_ms = time_ms(sdpa_fwd_grad, 10)
+        del qt, kt, vt, qg, kg, vg
         got = tfa.flash_attention_bwd(q, k, v, o, lse, do)
         again = tfa.flash_attention_bwd(q, k, v, o, lse, do)
         nb = 16 if res == 64 else B_TRAIN
@@ -331,6 +407,7 @@ def flash_bwd_phase(dev, tfa):
             refs.append(ref)
         del want
         ms = time_ms(lambda: tfa.flash_attention_bwd(q, k, v, o, lse, do), 10)
+        dev_ms = graph_ms(lambda: tfa.flash_attention_bwd(q, k, v, o, lse, do), 10)
 
         def plain_bwd():  # the whole batch, nb images at a time
             for i in range(0, B_TRAIN, nb):
@@ -351,11 +428,18 @@ def flash_bwd_phase(dev, tfa):
         flops = 10.0 * B_TRAIN * H * T * T * D
         nbytes = 8.0 * B_TRAIN * T * H * D * 2 + 4.0 * B_TRAIN * H * T
         b_ms, b_by = bound_ms(flops, nbytes)
+        # The function's B*H*T^2 exponentials (p once a score); the kernels
+        # exponentiate S twice, in the dk/dv and in the dq kernel.
+        exps = float(B_TRAIN * H * T * T)
         rows.append(dict(res=res, B=B_TRAIN, T=T, H=H, D=D, max_abs_err=max(errs),
                          max_abs_ref=max(refs), errs_dq_dk_dv=errs, fwd_o_err=o_err,
-                         fwd_lse_err=lse_err, plain_batch=nb, ms=ms,
+                         fwd_lse_err=lse_err, plain_batch=nb, ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, library_ms=lib_ms, flops=flops, bytes=nbytes,
-                         bound_ms=b_ms, bound_by=b_by))
+                         exps=exps, exp_floor_ms=exp_floor_ms(exps), bound_ms=b_ms,
+                         bound_by=b_by, fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms,
+                         fwd_library_ms=fwd_lib_ms, fwd_lse_library_ms=fwd_lse_lib_ms,
+                         fwd_device_ms=fwd_dev_ms, fwd_lse_device_ms=fwd_lse_dev_ms,
+                         fwd_library_device_ms=fwd_lib_dev_ms))
         print("flash_attention_bwd " + json.dumps(rows[-1]), flush=True)
         del q, k, v, y, do, o, lse, got, again, qt, kt, vt
         torch.cuda.empty_cache()
@@ -1376,7 +1460,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
-    print(smi, flush=True)
+    print(f"{smi}, SM clock limit {sm_clock_mhz():g} MHz", flush=True)
     dev = torch.device("cuda")
     torch.manual_seed(SEED)
     build_s = _build.build_all()
@@ -1414,6 +1498,20 @@ def main() -> None:
         return sum(r[key] for r in rows)
 
     kernels = []
+    # device_ms: the same calls replayed from a CUDA graph (no host cost per call)
+    flash_extra = {
+        "flash_attention_fwd": {
+            "device_ms": total(flash_rows, "device_ms"),
+            "library_device_ms": total(flash_rows, "library_device_ms"),
+            # the step's 6 launches at batch 64: 3 without lse, 3 with
+            "train_ms": total(flash_bwd_rows, "fwd_ms") + total(flash_bwd_rows, "fwd_lse_ms"),
+            "train_library_ms": (total(flash_bwd_rows, "fwd_library_ms")
+                                 + total(flash_bwd_rows, "fwd_lse_library_ms")),
+            "train_device_ms": (total(flash_bwd_rows, "fwd_device_ms")
+                                + total(flash_bwd_rows, "fwd_lse_device_ms")),
+        },
+        "flash_attention_bwd": {"device_ms": total(flash_bwd_rows, "device_ms")},
+    }
     for name, rows, src, replaces, lib, shapes in (
         ("flash_attention_fwd", flash_rows, "moegan_tpu_torch/ops/csrc/flash_attention.cu",
          "moegan_tpu/ops/flash_attention.py:226", True, "serving, batch 16"),
@@ -1466,6 +1564,7 @@ def main() -> None:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": total(rows, "library_ms") if lib else None,
             "shapes": shapes,
+            **flash_extra.get(name, {}),
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

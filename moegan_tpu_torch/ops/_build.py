@@ -3,8 +3,9 @@
 Each `.cu` file is compiled, at its first use, into a shared library with a
 plain C interface: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`. The libraries go to `moegan_tpu_torch/_build/` (listed in
-`.gitignore`), named by a hash of the source, so an edited source is built
-anew and an unchanged one is reused. All missing libraries are built at
+`.gitignore`), named by a hash of the source and of the shared headers
+(`csrc/*.cuh`), so an edited source or header is built anew and an
+unchanged one is reused. All missing libraries are built at
 once, one nvcc process per source, started together. Each library is
 written under a temporary name of its process and renamed into place, so
 processes that build at once never load a half-written file; a program
@@ -49,6 +50,8 @@ def nvcc() -> str:
 
 def library_path(source: str) -> Path:
     data = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    for header in sorted(CSRC.glob("*.cuh")):
+        data += header.read_bytes()
     digest = hashlib.sha256(data).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

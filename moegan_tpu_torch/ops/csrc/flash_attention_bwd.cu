@@ -11,364 +11,423 @@
 //   dk = ds^T q_pre * ln2
 //   dv = p^T do
 //
+// p and ds are rounded to bf16 before their products (ds from the fp32 p),
+// and the outputs to bf16.
+//
 // On the TPU one kernel walked the q tiles of a (batch, head) in order and
 // kept dk and dv resident across that walk. Hopper's blocks run in parallel
 // and in no order, so the work is split three ways, with no atomics, and
 // every fp32 sum runs in a fixed order (two calls give the same bits):
 //
-//   1. flash_bwd_delta_kernel: delta per row, one thread per row.
-//   2. flash_bwd_dkdv_kernel: one block of 4 warps per (b*h, 64-key tile).
-//      Each warp owns 16 keys and loops over every 64-row q tile: it
-//      computes its [64 q x 16 k] strips of S and dP = do v^T on the tensor
-//      cores (WMMA, bf16 in, fp32 accumulate), turns them into p and ds in
-//      shared memory, and accumulates dv += p^T do and dk += ds^T q_pre in
-//      register fragments. p and ds are rounded to bf16 for these products.
-//   3. flash_bwd_dq_kernel: one block per (b*h, 64-row q tile); each warp
-//      owns 16 query rows and loops over every 64-key tile, accumulating
-//      dq += ds k in register fragments.
+//   1. flash_bwd_prep_kernel: delta per row and q_pre, a contiguous bf16
+//      copy of the pre-scaled q that the other two read. One warp takes a
+//      group of 32 / (D/8) rows in 16-byte loads of o, do and q; the row's
+//      lanes sum their partial dot products in lane order.
+//   2. flash_bwd_dkdv_kernel, KV-tile-major: one block of 4 warps per
+//      (b*h, 64 keys); each warp owns 16 keys and walks every 64-row q tile,
+//      32 q rows at a time, computing the transposed tiles as
+//      FlashAttention-2 does, so that every operand is already in the A
+//      layout:
+//        S^T = K q_pre^T and dP^T = V do^T (mma.sync into registers),
+//        P^T = exp2(S^T - lse) and dS^T = P^T (dP^T - delta) in registers,
+//        packed to bf16x2, then dV += P^T do and dK += dS^T q_pre with P^T
+//        and dS^T as the A operands (do and q_pre through ldmatrix.trans);
+//      dK and dV stay in registers. The q_pre, do, lse and delta tiles are
+//      double-buffered with cp.async.
+//   3. flash_bwd_dq_kernel, q-tile-major: one block of 4 warps per
+//      (b*h, 64 q rows); each warp keeps its q_pre and do fragments in
+//      registers, walks every 64-key tile (K and V double-buffered with
+//      cp.async) 32 keys at a time, forms S and dP in registers, and uses
+//      dS as the A operand of dQ += dS K (K through ldmatrix.trans).
+// No fp32 S, P, dP or dS tile lives in shared memory. Shared rows are
+// padded to D + 8 so ldmatrix has no bank conflicts; each result is staged
+// through the warp's own shared rows for 16-byte stores.
 //
 // Layout: q, k, v are [B, T, H, D] read through their strides (last one 1,
 // the others multiples of 8, base 16-byte aligned), as in the forward; o and
 // do are contiguous [B, T, H, D]; lse is [B, H, T] fp32; dq, dk, dv are
 // written contiguous [B, T, H, D] bf16. Ragged q rows and keys past T are
-// masked. D must be a multiple of 16 and at most 64.
+// masked. D is 16, 32, 48 or 64.
 //
-// What bounds it: at the training shapes (T = 256/1024/4096, D = 16/32) the
-// products (14*B*H*T^2*D FLOPs: S, dP, dV, dK in one kernel, S, dP, dQ in the
-// other, against the 10*B*H*T^2*D the function needs) need little
-// time at the bf16 tensor-core rate; the B*H*T^2 exponentials, twice over,
-// and the shared-memory round trips of S, dP, p and ds bound this first
-// version. Keeping them in registers (mma.sync fragments or wgmma) and
-// sharing one recomputation between the dq and dk/dv passes are later work.
+// What bounds it: at the training shapes (T = 256 / 1024 / 4096, D = 16 /
+// 32) the products are 14*B*H*T^2*D FLOPs (S, dP, dV, dK in one kernel, S,
+// dP, dQ in the other, against the 10*B*H*T^2*D the function needs), and S
+// is exponentiated twice: 2*B*H*T^2 exponentials on the SFUs. At the
+// mma.sync rate that scripts/torch_mma_ex2_rates.py measured (541-570
+// TFLOP/s on an H100 80GB HBM3 at 700 W, against 989 for wgmma) the products
+// take longer than the exponentials (4.0e12/s): per 16 x 64 tile at D = 32,
+// 112 MMAs (~840 clocks on one SM sub-partition) against 64 ex2 (~512).
+// What the design does about it: keeps every score in registers (no
+// shared-memory round trip, no scalar pass), and holds the kernels to at
+// most 128 registers a thread at D <= 32 (half tiles of 32 columns, four
+// 4-warp blocks an SM; full 64-column tiles at ~160 registers ran ~20 %
+// slower). 8-warp blocks and three cp.async stages measured slower, and K
+// and V fragments kept across q tiles gained nothing.
+//
+// Left for later: a single recompute of S (the dq sums need an ordered
+// cross-block accumulation to keep the bits fixed), wgmma with ping-pong
+// warpgroups, and part of the exponentials by a polynomial on the FMA units.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "flash_mma.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace flash;
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per tile
-constexpr int BK = 64;  // keys per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int MAX_D = 64;
+constexpr int NW = 4;        // warps a block
+constexpr int BQI = KV_TILE;  // q rows per streamed tile of the dk/dv kernel
+constexpr int SUB = 32;       // columns of S (or S^T) live in registers at a time
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ACol;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
+// Blocks an SM must hold at once, as __launch_bounds__'s second argument:
+// four 4-warp blocks (at most 128 registers a thread) at D <= 32, where the
+// kernels fit them without spilling; fewer at D = 48 and 64.
+constexpr int min_blocks(int D) { return D <= 32 ? 4 : D == 48 ? 3 : 2; }
 
-__host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
-
-struct Layout {
-  size_t q, dout, k, v, s, dp, p, ds, lse, delta, total;
-  __host__ __device__ explicit Layout(int D) {
-    size_t off = 0;
-    q = off; off += align128(sizeof(bf16) * BQ * D);
-    dout = off; off += align128(sizeof(bf16) * BQ * D);
-    k = off; off += align128(sizeof(bf16) * BK * D);
-    v = off; off += align128(sizeof(bf16) * BK * D);
-    s = off; off += align128(sizeof(float) * BQ * BK);
-    dp = off; off += align128(sizeof(float) * BQ * BK);
-    p = off; off += align128(sizeof(bf16) * BQ * BK);
-    ds = off; off += align128(sizeof(bf16) * BQ * BK);
-    lse = off; off += align128(sizeof(float) * BQ);
-    delta = off; off += align128(sizeof(float) * BQ);
-    total = off;
-  }
-};
-
-struct Strides {
-  long long qb, qt, qh, kb, kt, kh, vb, vt, vh;
-};
-
-// Copy a [rows, D] tile starting at sequence position t0 into shared memory
-// in 16-byte loads, zero-filling rows at or past T.
-__device__ inline void load_tile(bf16* dst, const bf16* base, long long st, int t0, int rows,
-                                 int T, int D) {
-  const int per_row = D / 8;
-  for (int i = threadIdx.x; i < rows * per_row; i += NTHREADS) {
-    const int r = i / per_row, c8 = i % per_row;
-    const int t = t0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t < T) val = *reinterpret_cast<const uint4*>(base + t * st + c8 * 8);
-    *reinterpret_cast<uint4*>(dst + r * D + c8 * 8) = val;
-  }
+// Dynamic shared memory of the dk/dv kernel: the block's K and V rows, and
+// two stages of (q_pre, do) tiles with their lse and delta.
+constexpr int dkdv_smem_bytes(int D) {
+  return 2 * 16 * NW * pitch(D) * 2 + 2 * (2 * BQI * pitch(D) * 2 + 2 * BQI * 4);
 }
 
-// The q tile (scaled to q_pre in bf16), the do tile, and each row's lse and
-// delta; rows past T get lse = +inf, so their p is exactly 0.
-__device__ inline void load_q_side(bf16* sQ, bf16* sDO, float* sLse, float* sDelta,
-                                   const bf16* qb, long long qst, const bf16* dob,
-                                   const float* lse_bh, const float* delta_bh, int q0, int T,
-                                   int H, int D, float scale) {
-  load_tile(sQ, qb, qst, q0, BQ, T, D);
-  load_tile(sDO, dob, (long long)H * D, q0, BQ, T, D);
-  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
-    const int t = q0 + r;
-    sLse[r] = t < T ? lse_bh[t] : INFINITY;
-    sDelta[r] = t < T ? delta_bh[t] : 0.f;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BQ * D; i += NTHREADS)
-    sQ[i] = __float2bfloat16(__bfloat162float(sQ[i]) * scale);
+// Dynamic shared memory of the dq kernel: the block's q_pre and do rows, and
+// two stages of (K, V) tiles.
+constexpr int dq_smem_bytes(int D) {
+  return 2 * 16 * NW * pitch(D) * 2 + 2 * 2 * KV_TILE * pitch(D) * 2;
 }
 
-// p and ds for the [rows x 16] or [16 x cols] region given by (r0, nr, c0, nc)
-// of the S / dP tiles; keys at or past `nvalid` (tile-relative) get p = 0.
-__device__ inline void softmax_grad(const float* sS, const float* sDP, bf16* sP, bf16* sDS,
-                                    const float* sLse, const float* sDelta, int r0, int nr, int c0,
-                                    int nc, int nvalid) {
+// delta[(b*H + h)*T + t] = sum_d do[b,t,h,d] * o[b,t,h,d] and
+// qp[b,t,h,:] = bf16(q[b,t,h,:] * scale), over rows i = (b*T + t)*H + h.
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
+                      const bf16* __restrict__ dout, float* __restrict__ delta,
+                      bf16* __restrict__ qp, int B, int T, int H, int D, Strides st,
+                      float scale) {
+  const int cpr = D / 8;         // 16-byte chunks per row
+  const int rpw = 32 / cpr;      // rows per warp pass
   const int lane = threadIdx.x % 32;
-  for (int i = lane; i < nr * nc; i += 32) {
-    const int r = r0 + i / nc, c = c0 + i % nc;
-    const int at = r * BK + c;
-    const float p = c < nvalid ? exp2f(sS[at] - sLse[r]) : 0.f;
-    const float ds = p * (sDP[at] - sDelta[r]);
-    if (sP != nullptr) sP[at] = __float2bfloat16(p);
-    sDS[at] = __float2bfloat16(ds);
-  }
-}
-
-// delta[(b*H + h)*T + t] = sum_d do[b,t,h,d] * o[b,t,h,d] (contiguous inputs).
-__global__ void flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                                       float* __restrict__ delta, int B, int T, int H, int D) {
+  const int r = lane / cpr, c = lane % cpr;
   const long long rows = (long long)B * T * H;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < rows;
-       i += (long long)gridDim.x * blockDim.x) {
-    const bf16* orow = o + i * D;
-    const bf16* grow = dout + i * D;
-    float s = 0.f;
-    for (int d = 0; d < D; ++d) s = fmaf(__bfloat162float(grow[d]), __bfloat162float(orow[d]), s);
-    const long long h = i % H, bt = i / H;
-    const long long t = bt % T, b = bt / T;
-    delta[(b * H + h) * T + t] = s;
+  const long long warps = (long long)gridDim.x * (blockDim.x / 32);
+  for (long long i0 = (blockIdx.x * (long long)blockDim.x + threadIdx.x) / 32 * rpw; i0 < rows;
+       i0 += warps * rpw) {
+    const long long i = i0 + r;
+    const bool ok = r < rpw && i < rows;
+    float part = 0.f;
+    if (ok) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + i * D + c * 8);
+      const uint4 gv = *reinterpret_cast<const uint4*>(dout + i * D + c * 8);
+      const uint32_t* ow = reinterpret_cast<const uint32_t*>(&ov);
+      const uint32_t* gw = reinterpret_cast<const uint32_t*>(&gv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = unpack_bf16(ow[e]), g = unpack_bf16(gw[e]);
+        part = fmaf(g.x, a.x, part);
+        part = fmaf(g.y, a.y, part);
+      }
+      const long long h = i % H, bt = i / H;
+      const long long t = bt % T, b = bt / T;
+      uint4 qv = *reinterpret_cast<const uint4*>(q + b * st.qb + t * st.qt + h * st.qh + c * 8);
+      uint32_t* qw = reinterpret_cast<uint32_t*>(&qv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qw[e] = scale_bf16x2(qw[e], scale);
+      *reinterpret_cast<uint4*>(qp + i * D + c * 8) = qv;
+    }
+    // The row's first lane adds its neighbours' partials in lane order.
+    float sum = part;
+    for (int e = 1; e < cpr; ++e) {
+      const float x = __shfl_down_sync(0xffffffffu, part, e);
+      if (c == 0) sum += x;
+    }
+    if (ok && c == 0) {
+      const long long h = i % H, bt = i / H;
+      const long long t = bt % T, b = bt / T;
+      delta[(b * H + h) * T + t] = sum;
+    }
   }
 }
 
-template <int ND>  // D = 16 * ND
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+template <int ND>
+__global__ void __launch_bounds__(NW * 32, min_blocks(16 * ND))
+flash_bwd_dkdv_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H, Strides st,
-                      float scale, float dk_scale) {
-  constexpr int D = 16 * ND;
+                      float dk_scale) {
+  constexpr int D = 16 * ND, LD = pitch(D), BKV = 16 * NW, NT = 32 * NW;
+  constexpr int NSUB = SUB / 8;  // C tiles of S^T per warp and half tile
+  constexpr int STAGE = 2 * BQI * LD * 2 + 2 * BQI * 4;  // bytes of one stage
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(D);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L.dout);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L.v);
-  float* sS = reinterpret_cast<float*>(smem + L.s);
-  float* sDP = reinterpret_cast<float*>(smem + L.dp);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L.p);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L.ds);
-  float* sLse = reinterpret_cast<float*>(smem + L.lse);
-  float* sDelta = reinterpret_cast<float*>(smem + L.delta);
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + BKV * LD;
+  unsigned char* stages = smem + 2 * BKV * LD * 2;
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kw = warp * 16;  // this warp's 16 keys within the tile
-  const bf16* qb = q + b * st.qb + h * st.qh;
-  const bf16* dob = dout + ((long long)b * T * H + h) * D;
+  const int k0 = blockIdx.x * BKV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq = lane & 3;
+  const long long HD = (long long)H * D;
+  const bf16* qpb = qp + (long long)b * T * HD + h * D;
+  const bf16* dob = dout + (long long)b * T * HD + h * D;
   const float* lse_bh = lse + (long long)bh * T;
   const float* delta_bh = delta + (long long)bh * T;
+  const int nq = (T + BQI - 1) / BQI;
 
-  load_tile(sK, k + b * st.kb + h * st.kh, st.kt, k0, BK, T, D);
-  load_tile(sV, v + b * st.vb + h * st.vh, st.vt, k0, BK, T, D);
+  // Stage of q tile t: q_pre tile, do tile, lse, delta for q rows 64t .. 64t + 63.
+  auto issue = [&](int t) {
+    const int q0 = t * BQI;
+    unsigned char* base = stages + (t & 1) * STAGE;
+    bf16* tQ = reinterpret_cast<bf16*>(base);
+    stage_rows<D, NT>(tQ, qpb, HD, q0, BQI, T);
+    stage_rows<D, NT>(tQ + BQI * LD, dob, HD, q0, BQI, T);
+    float* tL = reinterpret_cast<float*>(base + 2 * BQI * LD * 2);
+    for (int i = threadIdx.x; i < 2 * BQI; i += NT) {
+      const int r = i % BQI, t = q0 + r;
+      const float* src = i < BQI ? lse_bh : delta_bh;
+      cp_async4(tL + i, t < T ? src + t : src, t < T);
+    }
+    cp_async_commit();
+  };
 
-  Acc accK[ND], accV[ND];
-  for (int dn = 0; dn < ND; ++dn) {
-    wmma::fill_fragment(accK[dn], 0.f);
-    wmma::fill_fragment(accV[dn], 0.f);
-  }
-  const int nvalid = min(BK, T - k0);
+  stage_rows<D, NT>(sK, k + b * st.kb + h * st.kh, st.kt, k0, BKV, T);
+  stage_rows<D, NT>(sV, v + b * st.vb + h * st.vh, st.vt, k0, BKV, T);
+  issue(0);  // one group with K and V
 
-  for (int q0 = 0; q0 < T; q0 += BQ) {
-    __syncthreads();  // every warp is done with the previous q tile
-    load_q_side(sQ, sDO, sLse, sDelta, qb, st.qt, dob, lse_bh, delta_bh, q0, T, H, D, scale);
-    __syncthreads();
+  float dk_acc[2 * ND][4], dv_acc[2 * ND][4];
+#pragma unroll
+  for (int n = 0; n < 2 * ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
-    // S[:, kw] = q_pre k[kw]^T and dP[:, kw] = do v[kw]^T, [64 x 16] each.
-    for (int mi = 0; mi < BQ / 16; ++mi) {
-      Acc s, dp;
-      wmma::fill_fragment(s, 0.f);
-      wmma::fill_fragment(dp, 0.f);
+  for (int j = 0; j < nq; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1's stage
+    if (j + 1 < nq) issue(j + 1);
+    unsigned char* base = stages + (j & 1) * STAGE;
+    const bf16* tQ = reinterpret_cast<const bf16*>(base);
+    const bf16* tDO = tQ + BQI * LD;
+    const float* tL = reinterpret_cast<const float*>(base + 2 * BQI * LD * 2);
+    const float* tD = tL + BQI;
+    const int q0 = j * BQI;
+
+    // The warp's K and V rows as A fragments, for both halves of the q tile.
+    uint32_t kfr[ND][4], vfr[ND][4];
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      load_a<D>(kfr[kk], sK, warp * 16, kk * 16);
+      load_a<D>(vfr[kk], sV, warp * 16, kk * 16);
+    }
+    const bool ragged = q0 + BQI > T;
+#pragma unroll 1
+    for (int c0 = 0; c0 < BQI; c0 += SUB) {
+      // S^T = K q_pre^T and dP^T = V do^T for this warp's 16 keys x SUB q rows.
+      float s[NSUB][4], dp[NSUB][4];
+#pragma unroll
+      for (int n = 0; n < NSUB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
       for (int kk = 0; kk < ND; ++kk) {
-        ARow fa;
-        BCol fb;
-        wmma::load_matrix_sync(fa, sQ + mi * 16 * D + kk * 16, D);
-        wmma::load_matrix_sync(fb, sK + kw * D + kk * 16, D);
-        wmma::mma_sync(s, fa, fb, s);
-        wmma::load_matrix_sync(fa, sDO + mi * 16 * D + kk * 16, D);
-        wmma::load_matrix_sync(fb, sV + kw * D + kk * 16, D);
-        wmma::mma_sync(dp, fa, fb, dp);
+#pragma unroll
+        for (int np = 0; np < NSUB / 2; ++np) {
+          uint32_t bq[4], bo[4];
+          load_bt<D>(bq, tQ, c0 + np * 16, kk * 16);
+          mma(s[2 * np], kfr[kk], bq[0], bq[1]);
+          mma(s[2 * np + 1], kfr[kk], bq[2], bq[3]);
+          load_bt<D>(bo, tDO, c0 + np * 16, kk * 16);
+          mma(dp[2 * np], vfr[kk], bo[0], bo[1]);
+          mma(dp[2 * np + 1], vfr[kk], bo[2], bo[3]);
+        }
       }
-      wmma::store_matrix_sync(sS + mi * 16 * BK + kw, s, BK, wmma::mem_row_major);
-      wmma::store_matrix_sync(sDP + mi * 16 * BK + kw, dp, BK, wmma::mem_row_major);
-    }
-    __syncwarp();
-    softmax_grad(sS, sDP, sP, sDS, sLse, sDelta, 0, BQ, kw, 16, nvalid);
-    __syncwarp();
 
-    // dv[kw] += p[:, kw]^T do and dk[kw] += ds[:, kw]^T q_pre.
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      ACol fp, fds;
-      wmma::load_matrix_sync(fp, sP + kk * 16 * BK + kw, BK);
-      wmma::load_matrix_sync(fds, sDS + kk * 16 * BK + kw, BK);
-      for (int dn = 0; dn < ND; ++dn) {
-        BRow fb;
-        wmma::load_matrix_sync(fb, sDO + kk * 16 * D + dn * 16, D);
-        wmma::mma_sync(accV[dn], fp, fb, accV[dn]);
-        wmma::load_matrix_sync(fb, sQ + kk * 16 * D + dn * 16, D);
-        wmma::mma_sync(accK[dn], fds, fb, accK[dn]);
+      // P^T and dS^T: column (q row) c0 + 8n + 2tq (+1) of keys g and g + 8.
+      uint32_t pt[NSUB][2], dst[NSUB][2];
+#pragma unroll
+      for (int n = 0; n < NSUB; ++n) {
+        const int col = c0 + n * 8 + 2 * tq;
+        const float2 L = *reinterpret_cast<const float2*>(tL + col);
+        const float2 Dl = *reinterpret_cast<const float2*>(tD + col);
+        float p0 = fast_exp2(s[n][0] - L.x), p1 = fast_exp2(s[n][1] - L.y);
+        float p2 = fast_exp2(s[n][2] - L.x), p3 = fast_exp2(s[n][3] - L.y);
+        if (ragged) {  // q rows past T carry no probability
+          if (q0 + col >= T) p0 = p2 = 0.f;
+          if (q0 + col + 1 >= T) p1 = p3 = 0.f;
+        }
+        pt[n][0] = pack_bf16(p0, p1);
+        pt[n][1] = pack_bf16(p2, p3);
+        dst[n][0] = pack_bf16(p0 * (dp[n][0] - Dl.x), p1 * (dp[n][1] - Dl.y));
+        dst[n][1] = pack_bf16(p2 * (dp[n][2] - Dl.x), p3 * (dp[n][3] - Dl.y));
+      }
+
+      // dV += P^T do and dK += dS^T q_pre over these q rows, 16 at a time.
+#pragma unroll
+      for (int kk = 0; kk < NSUB / 2; ++kk) {
+        const uint32_t pa[4] = {pt[2 * kk][0], pt[2 * kk][1], pt[2 * kk + 1][0],
+                                pt[2 * kk + 1][1]};
+        const uint32_t da[4] = {dst[2 * kk][0], dst[2 * kk][1], dst[2 * kk + 1][0],
+                                dst[2 * kk + 1][1]};
+#pragma unroll
+        for (int dn = 0; dn < ND; ++dn) {
+          uint32_t bo[4], bq[4];
+          load_b<D>(bo, tDO, c0 + kk * 16, dn * 16);
+          mma(dv_acc[2 * dn], pa, bo[0], bo[1]);
+          mma(dv_acc[2 * dn + 1], pa, bo[2], bo[3]);
+          load_b<D>(bq, tQ, c0 + kk * 16, dn * 16);
+          mma(dk_acc[2 * dn], da, bq[0], bq[1]);
+          mma(dk_acc[2 * dn + 1], da, bq[2], bq[3]);
+        }
       }
     }
   }
-  __syncthreads();  // every warp has read its last strips of S
 
-  // Each warp stages its [16 x D] results in its own rows of S and writes them.
-  float* stage = sS + kw * BK;
-  const int HD = H * D;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int dn = 0; dn < ND; ++dn)
-      wmma::store_matrix_sync(stage + dn * 16, pass == 0 ? accK[dn] : accV[dn], BK,
-                              wmma::mem_row_major);
-    __syncwarp();
-    bf16* out = pass == 0 ? dk : dv;
-    const float mul = pass == 0 ? dk_scale : 1.f;
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = i / D, c = i % D;
-      const int t = k0 + kw + r;
-      if (t < T) out[((long long)b * T + t) * HD + h * D + c] = __float2bfloat16(stage[r * BK + c] * mul);
-    }
-    __syncwarp();
-  }
+  // Each warp stages its results in its own K and V rows, read by it alone.
+  const int t0 = k0 + warp * 16;
+  store_rows<D>(dk_acc, dk_scale, sK + warp * 16 * LD, dk, b, h, t0, T, H);
+  store_rows<D>(dv_acc, 1.f, sV + warp * 16 * LD, dv, b, h, t0, T, H);
 }
 
-template <int ND>  // D = 16 * ND
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+template <int ND>
+__global__ void __launch_bounds__(NW * 32, min_blocks(16 * ND))
+flash_bwd_dq_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int T, int H, Strides st, float scale,
-                    float dq_scale) {
-  constexpr int D = 16 * ND;
+                    bf16* __restrict__ dq, int T, int H, Strides st, float dq_scale) {
+  constexpr int D = 16 * ND, LD = pitch(D), BQ = 16 * NW, NT = 32 * NW, BK = KV_TILE;
+  constexpr int NSUB = SUB / 8;  // C tiles of S per warp and half tile
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(D);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L.dout);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L.v);
-  float* sS = reinterpret_cast<float*>(smem + L.s);
-  float* sDP = reinterpret_cast<float*>(smem + L.dp);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L.ds);
-  float* sLse = reinterpret_cast<float*>(smem + L.lse);
-  float* sDelta = reinterpret_cast<float*>(smem + L.delta);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sDO = sQ + BQ * LD;
+  bf16* sKV = sDO + BQ * LD;  // [stage][K, V][BK][LD]
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int qw = warp * 16;  // this warp's 16 query rows within the tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
+  const long long HD = (long long)H * D;
   const bf16* kb = k + b * st.kb + h * st.kh;
   const bf16* vb = v + b * st.vb + h * st.vh;
+  const int nk = (T + BK - 1) / BK;
 
-  load_q_side(sQ, sDO, sLse, sDelta, q + b * st.qb + h * st.qh, st.qt,
-              dout + ((long long)b * T * H + h) * D, lse + (long long)bh * T,
-              delta + (long long)bh * T, q0, T, H, D, scale);
+  auto issue = [&](int t) {  // K and V of tile t into stage t % 2, one commit group
+    bf16* dst = sKV + (t & 1) * 2 * BK * LD;
+    stage_rows<D, NT>(dst, kb, st.kt, t * BK, BK, T);
+    stage_rows<D, NT>(dst + BK * LD, vb, st.vt, t * BK, BK, T);
+    cp_async_commit();
+  };
+  stage_rows<D, NT>(sQ, qp + (long long)b * T * HD + h * D, HD, q0, BQ, T);
+  stage_rows<D, NT>(sDO, dout + (long long)b * T * HD + h * D, HD, q0, BQ, T);
+  issue(0);  // with q_pre and do
 
-  Acc accQ[ND];
-  for (int dn = 0; dn < ND; ++dn) wmma::fill_fragment(accQ[dn], 0.f);
+  // lse and delta of rows g and g + 8; rows past T take 0 (their dq is not written).
+  const int t0 = q0 + warp * 16;
+  const float* lse_bh = lse + (long long)bh * T;
+  const float* delta_bh = delta + (long long)bh * T;
+  const float lse0 = t0 + g < T ? lse_bh[t0 + g] : 0.f;
+  const float lse1 = t0 + g + 8 < T ? lse_bh[t0 + g + 8] : 0.f;
+  const float del0 = t0 + g < T ? delta_bh[t0 + g] : 0.f;
+  const float del1 = t0 + g + 8 < T ? delta_bh[t0 + g + 8] : 0.f;
 
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    __syncthreads();  // scaled q visible; every warp is done with the previous K/V tile
-    load_tile(sK, kb, st.kt, k0, BK, T, D);
-    load_tile(sV, vb, st.vt, k0, BK, T, D);
-    __syncthreads();
+  uint32_t qf[ND][4], of[ND][4];
+  float dq_acc[2 * ND][4];
+#pragma unroll
+  for (int n = 0; n < 2 * ND; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
 
-    // S[qw, :] = q_pre[qw] k^T and dP[qw, :] = do[qw] v^T, [16 x 64] each.
-    for (int n = 0; n < BK / 16; ++n) {
-      Acc s, dp;
-      wmma::fill_fragment(s, 0.f);
-      wmma::fill_fragment(dp, 0.f);
+  for (int j = 0; j < nk; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1's stage
+    if (j + 1 < nk) issue(j + 1);
+    if (j == 0) {
+#pragma unroll
       for (int kk = 0; kk < ND; ++kk) {
-        ARow fa;
-        BCol fb;
-        wmma::load_matrix_sync(fa, sQ + qw * D + kk * 16, D);
-        wmma::load_matrix_sync(fb, sK + n * 16 * D + kk * 16, D);
-        wmma::mma_sync(s, fa, fb, s);
-        wmma::load_matrix_sync(fa, sDO + qw * D + kk * 16, D);
-        wmma::load_matrix_sync(fb, sV + n * 16 * D + kk * 16, D);
-        wmma::mma_sync(dp, fa, fb, dp);
+        load_a<D>(qf[kk], sQ, warp * 16, kk * 16);
+        load_a<D>(of[kk], sDO, warp * 16, kk * 16);
       }
-      wmma::store_matrix_sync(sS + qw * BK + n * 16, s, BK, wmma::mem_row_major);
-      wmma::store_matrix_sync(sDP + qw * BK + n * 16, dp, BK, wmma::mem_row_major);
     }
-    __syncwarp();
-    softmax_grad(sS, sDP, nullptr, sDS, sLse, sDelta, qw, 16, 0, BK, min(BK, T - k0));
-    __syncwarp();
+    const bf16* sK = sKV + (j & 1) * 2 * BK * LD;
+    const bf16* sV = sK + BK * LD;
+    const int kv0 = j * BK;
 
-    // dq[qw] += ds[qw, :] k.
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      ARow fa;
-      wmma::load_matrix_sync(fa, sDS + qw * BK + kk * 16, BK);
-      for (int dn = 0; dn < ND; ++dn) {
-        BRow fb;
-        wmma::load_matrix_sync(fb, sK + kk * 16 * D + dn * 16, D);
-        wmma::mma_sync(accQ[dn], fa, fb, accQ[dn]);
+    const bool ragged = kv0 + BK > T;
+#pragma unroll 1
+    for (int c0 = 0; c0 < BK; c0 += SUB) {
+      // S and dP for the warp's 16 q rows x SUB keys.
+      float s[NSUB][4], dp[NSUB][4];
+#pragma unroll
+      for (int n = 0; n < NSUB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < ND; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NSUB / 2; ++np) {
+          uint32_t bk[4], bv[4];
+          load_bt<D>(bk, sK, c0 + np * 16, kk * 16);
+          mma(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          load_bt<D>(bv, sV, c0 + np * 16, kk * 16);
+          mma(dp[2 * np], of[kk], bv[0], bv[1]);
+          mma(dp[2 * np + 1], of[kk], bv[2], bv[3]);
+        }
+      }
+
+      // dS of rows g and g + 8, keys kv0 + c0 + 8n + 2tq (+1); keys past T
+      // carry no probability.
+      uint32_t ds[NSUB][2];
+#pragma unroll
+      for (int n = 0; n < NSUB; ++n) {
+        float p0 = fast_exp2(s[n][0] - lse0), p1 = fast_exp2(s[n][1] - lse0);
+        float p2 = fast_exp2(s[n][2] - lse1), p3 = fast_exp2(s[n][3] - lse1);
+        if (ragged) {
+          const int key = kv0 + c0 + n * 8 + 2 * tq;
+          if (key >= T) p0 = p2 = 0.f;
+          if (key + 1 >= T) p1 = p3 = 0.f;
+        }
+        ds[n][0] = pack_bf16(p0 * (dp[n][0] - del0), p1 * (dp[n][1] - del0));
+        ds[n][1] = pack_bf16(p2 * (dp[n][2] - del1), p3 * (dp[n][3] - del1));
+      }
+
+      // dQ += dS K over these keys, 16 at a time.
+#pragma unroll
+      for (int kk = 0; kk < NSUB / 2; ++kk) {
+        const uint32_t da[4] = {ds[2 * kk][0], ds[2 * kk][1], ds[2 * kk + 1][0],
+                                ds[2 * kk + 1][1]};
+#pragma unroll
+        for (int dn = 0; dn < ND; ++dn) {
+          uint32_t bk[4];
+          load_b<D>(bk, sK, c0 + kk * 16, dn * 16);
+          mma(dq_acc[2 * dn], da, bk[0], bk[1]);
+          mma(dq_acc[2 * dn + 1], da, bk[2], bk[3]);
+        }
       }
     }
   }
-  __syncwarp();
 
-  float* stage = sS + qw * BK;
-  for (int dn = 0; dn < ND; ++dn)
-    wmma::store_matrix_sync(stage + dn * 16, accQ[dn], BK, wmma::mem_row_major);
-  __syncwarp();
-  const int HD = H * D;
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = i / D, c = i % D;
-    const int t = q0 + qw + r;
-    if (t < T) dq[((long long)b * T + t) * HD + h * D + c] = __float2bfloat16(stage[r * BK + c] * dq_scale);
-  }
+  store_rows<D>(dq_acc, dq_scale, sQ + warp * 16 * LD, dq, b, h, t0, T, H);
 }
 
 // The dk/dv and dq kernels at head dim 16 * ND.
 template <int ND>
-int launch_main(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+int launch_main(const void* qp, const void* k, const void* v, const void* dout, const void* lse,
                 const void* delta, void* dq, void* dk, void* dv, int B, int T, int H,
-                const Strides& st, float scale, float dq_scale, float dk_scale, cudaStream_t s) {
-  const Layout L(16 * ND);
-  const int smem = static_cast<int>(L.total);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<ND>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<ND>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                const Strides& st, float dq_scale, float dk_scale, cudaStream_t s) {
+  constexpr int D = 16 * ND;
+  static_assert(dkdv_smem_bytes(D) <= MAX_SMEM && dq_smem_bytes(D) <= MAX_SMEM,
+                "backward tiles exceed a block's shared memory");
+  static unsigned attr_kv = 0, attr_q = 0;
+  cudaError_t err = set_smem_once(flash_bwd_dkdv_kernel<ND>, dkdv_smem_bytes(D), attr_kv);
+  if (err == cudaSuccess) err = set_smem_once(flash_bwd_dq_kernel<ND>, dq_smem_bytes(D), attr_q);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_k((T + BK - 1) / BK, B * H);
-  flash_bwd_dkdv_kernel<ND><<<grid_k, NTHREADS, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+  const dim3 grid((T + 16 * NW - 1) / (16 * NW), B * H);
+  flash_bwd_dkdv_kernel<ND><<<grid, NW * 32, dkdv_smem_bytes(D), s>>>(
+      static_cast<const bf16*>(qp), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H,
-      st, scale, dk_scale);
+      st, dk_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q((T + BQ - 1) / BQ, B * H);
-  flash_bwd_dq_kernel<ND><<<grid_q, NTHREADS, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+  flash_bwd_dq_kernel<ND><<<grid, NW * 32, dq_smem_bytes(D), s>>>(
+      static_cast<const bf16*>(qp), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), T, H, st, scale, dq_scale);
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), T, H, st, dq_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,30 +440,33 @@ const char* moegan_cuda_error_string(int code) {
 }
 
 // strides: q (b, t, h), k (b, t, h), v (b, t, h) in elements. o and do are
-// contiguous [B, T, H, D]; delta is a [B, H, T] fp32 scratch. Launches the
-// three kernels on `stream`; returns the cudaError_t of the launches.
+// contiguous [B, T, H, D]; delta ([B, H, T] fp32) and qp (contiguous
+// [B, T, H, D] bf16) are scratch. Launches the three kernels on `stream`;
+// returns the cudaError_t of the launches.
 int moegan_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                               const void* dout, const void* lse, void* delta, void* dq,
-                               void* dk, void* dv, int B, int T, int H, int D,
+                               const void* dout, const void* lse, void* delta, void* qp,
+                               void* dq, void* dk, void* dv, int B, int T, int H, int D,
                                const long long* strides, float scale, float dq_scale,
                                float dk_scale, void* stream) {
-  if (D % 16 != 0 || D > MAX_D) return static_cast<int>(cudaErrorInvalidValue);
+  if (D % 16 != 0 || D < 16 || D > 64)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
                    strides[5], strides[6], strides[7], strides[8]};
   const long long rows = (long long)B * T * H;
-  const int blocks = static_cast<int>((rows + 255) / 256 < 65535 ? (rows + 255) / 256 : 65535);
-  flash_bwd_delta_kernel<<<blocks, 256, 0, s>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(delta),
-      B, T, H, D);
+  const long long groups = (rows + 32 / (D / 8) - 1) / (32 / (D / 8));  // one warp each
+  const long long want = (groups + 7) / 8;
+  const int blocks = static_cast<int>(want < 65535 ? want : 65535);
+  flash_bwd_prep_kernel<<<blocks, 256, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<float*>(delta), static_cast<bf16*>(qp), B, T, H, D, st, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  switch (D / 16) {
-    case 1: return launch_main<1>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, H, st, scale, dq_scale, dk_scale, s);
-    case 2: return launch_main<2>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, H, st, scale, dq_scale, dk_scale, s);
-    case 3: return launch_main<3>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, H, st, scale, dq_scale, dk_scale, s);
-    default: return launch_main<4>(q, k, v, dout, lse, delta, dq, dk, dv, B, T, H, st, scale, dq_scale, dk_scale, s);
+  switch (D) {
+    case 16: return launch_main<1>(qp, k, v, dout, lse, delta, dq, dk, dv, B, T, H, st, dq_scale, dk_scale, s);
+    case 32: return launch_main<2>(qp, k, v, dout, lse, delta, dq, dk, dv, B, T, H, st, dq_scale, dk_scale, s);
+    case 48: return launch_main<3>(qp, k, v, dout, lse, delta, dq, dk, dv, B, T, H, st, dq_scale, dk_scale, s);
+    default: return launch_main<4>(qp, k, v, dout, lse, delta, dq, dk, dv, B, T, H, st, dq_scale, dk_scale, s);
   }
 }
 

@@ -18,12 +18,14 @@ backward kernel. A forward without grad (the D phase's fake) calls
 
 Dispatch: a CPU tensor takes the plain version (`flash_attention_reference`,
 `flash_attention_bwd_reference`); a CUDA tensor launches the kernel or
-raises. There is no fallback between the two.
+raises. There is no fallback between the two. `flash_plan` picks the
+forward's q tile from the shape and the card's SM count.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -34,6 +36,28 @@ LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
 
 
+def flash_plan(B: int, H: int, T: int, D: int, sms: int) -> int:
+    """Query rows a block of the flash forward owns, for [B, T, H, D] inputs
+    on a card with `sms` streaming multiprocessors.
+
+    Every block runs 4 warps (8 measured slower on the H100: fewer registers
+    a thread, fewer blocks an SM), and each warp owns 16 or 32 query rows:
+    32 (a 128-row tile) share each K and V fragment between two row strips,
+    and are taken for D <= 32 when the grid of 128-row tiles still has a
+    block for every SM; otherwise 16 (a 64-row tile) keep more blocks in
+    flight, as for the lone served request at res 64 (B*H = 4). The
+    backward has no choice to make: its blocks own 64 keys (dk/dv) or 64
+    q rows (dq). Each kernel sizes its own shared memory.
+    """
+    return 128 if D <= 32 and -(-T // 128) * B * H >= sms else 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _q_scale(D: int, dtype: torch.dtype) -> float:
     """log2(e)/sqrt(D), rounded to `dtype` as the TPU caller rounds it."""
     return float(torch.tensor(LOG2E / math.sqrt(D), dtype=torch.float32).to(dtype).float())
@@ -82,6 +106,29 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError("B*H must be at most 65535 (grid y dimension)")
 
 
+def _strides(q, k, v):
+    """The (b, t, h) strides of q, k, v as the C entry points take them."""
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    return (ctypes.c_longlong * 9)(*qs[:3], *ks[:3], *vs[:3])
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(stem: str, name: str, argtypes: tuple):
+    """The C entry point `name` of csrc/<stem>.cu, with its argument types set once."""
+    lib = _build.load(stem)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    return lib, fn
+
+
+_FWD_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+_BWD_ARGS = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 4 + (
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_void_p)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool = False):
     """Non-causal softmax(q k^T / sqrt(D)) v over [B, T, H, D] tensors.
 
@@ -98,19 +145,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse:
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if with_lse else None
     if T == 0 or B * H == 0:
         return (o, lse) if with_lse else o
-    strides = (ctypes.c_longlong * 9)(
-        *(t.stride(i) for t in (q, k, v) for i in (0, 1, 2))
-    )
-    lib = _build.load("flash_attention")
-    fn = lib.moegan_flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p,
-    ]
+    block_q = flash_plan(B, H, T, D, _sm_count(q.device))
+    lib, fn = _entry("flash_attention", "moegan_flash_attention_fwd", _FWD_ARGS)
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        B, T, H, D, strides, _q_scale(D, q.dtype),
+        B, T, H, D, _strides(q, k, v), block_q, _q_scale(D, q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_attention_fwd")
@@ -142,23 +182,15 @@ def flash_attention_bwd(q, k, v, o, lse, do):
     if lse.shape != (B, H, T) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse: want contiguous float32 {(B, H, T)}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")
-    dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
+    dq, dk, dv, qp = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+                      for _ in range(4))
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 9)(
-        *(t.stride(i) for t in (q, k, v) for i in (0, 1, 2))
-    )
     scale = _q_scale(D, q.dtype)
-    lib = _build.load("flash_attention_bwd")
-    fn = lib.moegan_flash_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p,
-    ]
+    lib, fn = _entry("flash_attention_bwd", "moegan_flash_attention_bwd", _BWD_ARGS)
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, T, H, D, strides, scale, scale * LN2, LN2,
+        delta.data_ptr(), qp.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, T, H, D, _strides(q, k, v), scale, scale * LN2, LN2,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash_attention_bwd")

@@ -22,16 +22,26 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# T below one 64-key tile (40), ragged (200, 1000), the res-64 length (4096);
+# every head dim the kernel takes; (4096, 5, 32), (1000, 9, 16) and
+# (200, 40, 32) make flash_plan pick 128-row q tiles (two 16-row strips a
+# warp), the others 64-row tiles.
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,H,D", [(256, 8, 16), (1024, 2, 32), (200, 1, 32)])
+@pytest.mark.parametrize("T,H,D", [(256, 8, 16), (1024, 2, 32), (200, 1, 32), (40, 4, 16),
+                                   (200, 3, 48), (1000, 17, 64), (1000, 2, 48),
+                                   (4096, 5, 32), (4096, 1, 64), (1000, 9, 16), (200, 40, 32)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, T, H, D):
     # q|k|v as last-axis slices of one [B, T, 3HD] tensor (the strided path).
     g = torch.Generator(device=cuda_device).manual_seed(T)
     y = torch.randn((2, T, 3 * H * D), generator=g, device=cuda_device).to(torch.bfloat16)
     q, k, v = (y[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D)) for i in range(3))
     o, lse = tfa.flash_attention(q, k, v, with_lse=True)
+    o_again = tfa.flash_attention(q, k, v)
+    o_twice = tfa.flash_attention(q, k, v)
     want_o, want_lse = tfa.flash_attention_reference(q, k, v, with_lse=True)
     torch.cuda.synchronize()
+    assert torch.equal(o, o_again), "the no-lse call differs from the lse call"
+    assert torch.equal(o_again, o_twice), "two calls differ"
     # A few bf16 ulps of the largest |o| (std(o) ~ sqrt(e/T) for N(0, 1)
     # inputs): the final rounding of o plus p rounded against different maxima.
     atol = 4 * 2.0 ** -8 * want_o.float().abs().max().item()
@@ -56,8 +66,10 @@ def test_moe_kernel_matches_plain_on_card(cuda_device, C, T, hard):
     torch.testing.assert_close(out.float(), want_out.float(), atol=3e-2, rtol=2e-2)
 
 
+# Ragged T at every head dim, below one tile (77) and across many (1000).
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,H,D", [(256, 8, 16), (1024, 2, 32), (200, 1, 32), (136, 2, 64)])
+@pytest.mark.parametrize("T,H,D", [(256, 8, 16), (1024, 2, 32), (200, 1, 32), (136, 2, 64),
+                                   (77, 3, 16), (333, 2, 48), (1000, 17, 16), (520, 33, 64)])
 def test_flash_bwd_kernel_matches_plain_on_card(cuda_device, T, H, D):
     g = torch.Generator(device=cuda_device).manual_seed(T + 1)
     y = torch.randn((2, T, 3 * H * D), generator=g, device=cuda_device).to(torch.bfloat16)

@@ -68,6 +68,28 @@ def test_flash_plain_matches_pallas_kernel_bf16(D):
     np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=2e-2)
 
 
+@pytest.mark.parametrize("B", [4, 16, 64])
+def test_flash_plan_fits_every_shape(B):
+    # The self-attention shapes of the 64x64 generator (res 16 / 32 / 64)
+    # served at batch 4 and 16 and trained at batch 64, at every head dim the
+    # wrapper accepts, on the H100's 132 SMs: q tiles of whole 16-row warp
+    # strips of a 4-warp block, 128-row tiles only at D <= 32 and only while
+    # their grid still covers the card. Each kernel checks its own shared
+    # memory against a block's limit when it is compiled.
+    for T, H in ((256, 8), (1024, 2), (4096, 1)):
+        for D in (16, 32, 48, 64):
+            block_q = tfa.flash_plan(B, H, T, D, 132)
+            assert block_q in (64, 128), (B, T, H, D, block_q)
+            if block_q == 128:
+                assert D <= 32 and -(-T // 128) * B * H >= 132, (B, T, H, D)
+    assert tfa.flash_plan(4, 1, 4096, 32, 132) == 64  # the lone served request
+    assert tfa.flash_plan(64, 1, 4096, 32, 132) == 128
+    assert tfa.flash_plan(64, 1, 4096, 64, 132) == 64
+    # 512 tiles of 128 rows fill 132 SMs, not 1000
+    assert tfa.flash_plan(16, 1, 4096, 32, 132) == 128
+    assert tfa.flash_plan(16, 1, 4096, 32, 1000) == 64
+
+
 @pytest.mark.parametrize("hard", [True, False])
 @pytest.mark.parametrize("kernel", ["v1", "v2"])
 def test_moe_plain_matches_pallas_kernel(kernel, hard):

@@ -216,7 +216,7 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "sys.path.insert(0, 'scripts')\n"
-        "import chip_smoke, torch_serving_profile, torch_train_profile\n"
+        "import chip_smoke, torch_mma_ex2_rates, torch_serving_profile, torch_train_profile\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_dist_helpers\n"
         "print(' '.join(names))\n"
