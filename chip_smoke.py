@@ -12,17 +12,20 @@ failure (non-zero exit, no result line):
 2. each forward kernel against its plain PyTorch version on the card, in
    bf16, at every shape the serving path gives it at batch 16, with times
    (CUDA events) for the kernel, the plain version and, for attention,
-   `F.scaled_dot_product_attention` as a yardstick, and for attention also
-   the device time alone (20 calls replayed from a CUDA graph) and the
-   exponential floor (B*H*T^2 exponentials over an assumed 16 per SM per
-   clock at the SM clock limit), printed on each shape's line;
+   `F.scaled_dot_product_attention` as a yardstick, the device time alone
+   (the calls replayed from a CUDA graph) and the SFU floor (for attention
+   B*H*T^2 exponentials, for the MoE forward two SFU operations a GELU,
+   over an assumed 16 per SM per clock at the SM clock limit), printed on
+   each shape's line;
 3. each backward kernel against its plain version at every shape the
    training step gives it at batch 64 (flash: dq, dk, dv, SDPA forward +
    backward as the yardstick, the exponential floor of the function's
    B*H*T^2 exponentials, the forward's o and lse and its times with and
    without lse beside SDPA's forward without and with grad; MoE: all
    nine gradients of `FusedMoEFunction` against the autograd of
-   `moe_ffn_reference`), two calls bit-identical;
+   `moe_ffn_reference`, the soft forward's out and probs, and the times,
+   device times, bounds and GELU floors of the soft forward and the
+   backward), two calls bit-identical;
 4. the served slice: the default 64x64 generator built from a seed, written
    as `.npz` + `generator_config.json`, loaded by the port's
    `InferenceHandler`, served over HTTP on 127.0.0.1; one lone /generate
@@ -171,7 +174,8 @@ def sm_clock_mhz() -> float:
 
 
 def exp_floor_ms(exps: float) -> float:
-    """Least time for `exps` exponentials on the SFUs of every SM at the SM clock limit."""
+    """Least time for `exps` exponentials (or other SFU operations: a GELU is a
+    reciprocal and an exponential) on the SFUs of every SM at the SM clock limit."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return exps / (EX2_PER_SM_CLOCK * sms * sm_clock_mhz() * 1e6) * 1e3
 
@@ -295,6 +299,7 @@ def moe_phase(dev, tfm):
         err_h, perr_h, excl, p, scale = moe_compare(tfm, args, True, f"res {res} hard")
         err_s, perr_s, _, _, _ = moe_compare(tfm, args, False, f"res {res} soft")
         ms = time_ms(lambda: tfm.fused_moe_ffn(*args, hard=True), 10)
+        dev_ms = graph_ms(lambda: tfm.fused_moe_ffn(*args, hard=True), 10)
         plain_ms = time_ms(lambda: tfm.moe_ffn_reference(*args, hard=True), 3)
         E, F_, h = 4, 4 * C, args[1].shape[1]
         # Work this data needs under hard routing: each token's selected
@@ -308,9 +313,14 @@ def moe_phase(dev, tfm):
         rows.append(dict(res=res, T=T, C=C, F=F_, E=E, max_abs_err=max(err_h, err_s),
                          hard_err=err_h, soft_err=err_s, max_abs_ref=scale,
                          probs_err=max(perr_h, perr_s),
-                         near_tie_tokens_excluded=excl, ms=ms, plain_ms=plain_ms, flops=flops,
+                         near_tie_tokens_excluded=excl, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, flops=flops,
                          dense_flops=4.0 * T * C * F_ * E, bytes=float(nbytes), bound_ms=b_ms,
-                         bound_by=b_by, plan=list(tfm.kernel_plan(T, C, F_, E, dev))))
+                         bound_by=b_by,
+                         # every token tile computes every expert it selects: T*E*F
+                         # GELUs at most, 2 SFU operations each
+                         gelu_floor_ms=exp_floor_ms(2.0 * selections * F_),
+                         plan=list(tfm.kernel_plan(T, C, F_, E, dev))))
         print("fused_moe_fwd " + json.dumps(rows[-1]), flush=True)
     args = moe_args(dev, 256, 1000, ties=37, seed=99)  # ragged T, forced ties
     err, _, _, p, _ = moe_compare(tfm, args, True, "forced ties")
@@ -479,6 +489,10 @@ def moe_bwd_phase(dev, tfm):
               f"moe fwd res {res} batch {B_TRAIN}: max |out - plain| {out_err} (max {out_max})")
         check(p_err <= 1e-5, f"moe fwd res {res} batch {B_TRAIN}: max |probs - plain| {p_err}")
         del out, out2, out_ref, probs, probs2, probs_ref
+        # The soft forward as the step launches it (twice a step: G and D phases).
+        fwd_ms = time_ms(lambda: tfm.fused_moe_ffn(*args, hard=False), 10)
+        fwd_dev_ms = graph_ms(lambda: tfm.fused_moe_ffn(*args, hard=False), 10)
+        p_fwd = tfm.fused_moe_ffn(*args, hard=False)[1]
         errs = {}
         for name, a, b, c in zip(names, got, again, want):
             check(torch.equal(a, b), f"moe bwd res {res}: two calls give different d{name}")
@@ -493,7 +507,11 @@ def moe_bwd_phase(dev, tfm):
             check(err <= tol, f"moe bwd res {res}: max |d{name} - plain| {err} > {tol}")
             errs[name] = [err, ref]
         x, fw, cw, tl, it, w1, b1, w2, b2 = args
-        ms = time_ms(lambda: tfm.fused_moe_bwd(x, fw, cw, tl, it, w1, b1, w2, b2, dout), 5)
+        # As FusedMoEFunction launches it, reading the forward's routing.
+        ms = time_ms(lambda: tfm.fused_moe_bwd(x, fw, cw, tl, it, w1, b1, w2, b2, dout,
+                                               probs=p_fwd), 5)
+        dev_ms = graph_ms(lambda: tfm.fused_moe_bwd(x, fw, cw, tl, it, w1, b1, w2, b2, dout,
+                                                    probs=p_fwd), 5)
         plain_ms = time_ms(lambda: tfm.moe_ffn_bwd_reference(x, fw, cw, tl, it, w1, b1, w2, b2,
                                                              dout), 3)
         E, F_ = 4, 4 * C
@@ -503,15 +521,30 @@ def moe_bwd_phase(dev, tfm):
         nbytes = (2.0 * T * C * 2 + 2 * E * C * F_ * 2 + T * C * 4 + T * E * 4
                   + 2 * E * C * F_ * 4 + (E * F_ + E * C) * 4)
         b_ms, b_by = bound_ms(flops, nbytes)
+        # The soft forward's work: x, the router and the weights read, out and probs
+        # written; the router's products besides the FFN's 4*T*C*F*E.
+        h = fw.shape[1]
+        fwd_flops = 4.0 * T * C * F_ * E + 2.0 * T * C * h + 2.0 * T * h * E
+        fwd_bytes = (T * C * 2 * 2 + T * E * 4 * 2 + C * h * 2 + h * E * 4
+                     + E * (2 * C * F_ * 2 + (F_ + C) * 4))
+        fwd_b_ms, fwd_b_by = bound_ms(fwd_flops, fwd_bytes)
+        # T*E*F GELUs (with gelu' in the backward, sharing its exponential), 2 SFU
+        # operations each
+        gelu_floor = exp_floor_ms(2.0 * T * E * F_)
         rows.append(dict(res=res, T=T, C=C, F=F_, E=E,
                          max_abs_err=max(e for e, _ in errs.values()),
                          max_rel_err=max(e / max(r, 1e-30) for e, r in errs.values()),
                          errs=errs, fwd_out_err=out_err, fwd_probs_err=p_err, ms=ms,
+                         device_ms=dev_ms,
                          plain_ms=plain_ms, flops=flops, bytes=nbytes,
-                         bound_ms=b_ms, bound_by=b_by,
-                         plan=list(tfm.bwd_kernel_plan(T, C, F_, E, dev))))
+                         bound_ms=b_ms, bound_by=b_by, gelu_floor_ms=gelu_floor,
+                         fwd_ms=fwd_ms, fwd_device_ms=fwd_dev_ms, fwd_flops=fwd_flops,
+                         fwd_bytes=fwd_bytes, fwd_bound_ms=fwd_b_ms, fwd_bound_by=fwd_b_by,
+                         fwd_gelu_floor_ms=gelu_floor,
+                         plan=list(tfm.bwd_kernel_plan(T, C, F_, E, dev)),
+                         fwd_plan=list(tfm.kernel_plan(T, C, F_, E, dev))))
         print("fused_moe_bwd " + json.dumps(rows[-1]), flush=True)
-        del got, again, want, args, dout, dprobs
+        del got, again, want, args, dout, dprobs, p_fwd
         torch.cuda.empty_cache()
     return rows
 
@@ -1499,7 +1532,7 @@ def main() -> None:
 
     kernels = []
     # device_ms: the same calls replayed from a CUDA graph (no host cost per call)
-    flash_extra = {
+    extra = {
         "flash_attention_fwd": {
             "device_ms": total(flash_rows, "device_ms"),
             "library_device_ms": total(flash_rows, "library_device_ms"),
@@ -1511,6 +1544,14 @@ def main() -> None:
                                 + total(flash_bwd_rows, "fwd_lse_device_ms")),
         },
         "flash_attention_bwd": {"device_ms": total(flash_bwd_rows, "device_ms")},
+        "fused_moe_fwd": {
+            "device_ms": total(moe_rows, "device_ms"),
+            # the soft forward at batch 64, five launches (one a block); the
+            # step launches this set twice (G and D phases)
+            "train_fwd_set_ms": total(moe_bwd_rows, "fwd_ms"),
+            "train_fwd_set_device_ms": total(moe_bwd_rows, "fwd_device_ms"),
+        },
+        "fused_moe_bwd": {"device_ms": total(moe_bwd_rows, "device_ms")},
     }
     for name, rows, src, replaces, lib, shapes in (
         ("flash_attention_fwd", flash_rows, "moegan_tpu_torch/ops/csrc/flash_attention.cu",
@@ -1537,13 +1578,16 @@ def main() -> None:
         ("layer_norm_bwd", ln_bwd_rows, "moegan_tpu_torch/ops/csrc/layer_norm.cu",
          "moegan_tpu/ops/fused_layernorm.py:54", True,
          "training, batch 64, one norm per block, MOEGAN_FUSED_LN=1"),
-        ("moe_bwd_dx", legacy_rows["moe_bwd_dx"], "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
+        ("moe_bwd_dx", legacy_rows["moe_bwd_dx"],
+         "moegan_tpu_torch/ops/csrc/fused_moe_legacy.cu",
          "moegan_tpu/ops/fused_moe.py:239", False,
          "training, batch 64, MOEGAN_PALLAS_MOE_BWD=3"),
-        ("moe_bwd_dw2", legacy_rows["moe_bwd_dw2"], "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
+        ("moe_bwd_dw2", legacy_rows["moe_bwd_dw2"],
+         "moegan_tpu_torch/ops/csrc/fused_moe_legacy.cu",
          "moegan_tpu/ops/fused_moe.py:282", False,
          "training, batch 64, MOEGAN_PALLAS_MOE_BWD=3"),
-        ("moe_bwd_dw1", legacy_rows["moe_bwd_dw1"], "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
+        ("moe_bwd_dw1", legacy_rows["moe_bwd_dw1"],
+         "moegan_tpu_torch/ops/csrc/fused_moe_legacy.cu",
          "moegan_tpu/ops/fused_moe.py:310", False,
          "training, batch 64, MOEGAN_PALLAS_MOE_BWD=3"),
     ):
@@ -1564,7 +1608,7 @@ def main() -> None:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": total(rows, "library_ms") if lib else None,
             "shapes": shapes,
-            **flash_extra.get(name, {}),
+            **extra.get(name, {}),
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,6 +18,7 @@ nvcc is needed only when a kernel is first launched on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -30,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = (
     "flash_attention.cu", "flash_attention_bwd.cu", "fused_moe.cu", "fused_moe_bwd.cu",
-    "layer_norm.cu",
+    "fused_moe_legacy.cu", "layer_norm.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,6 +95,16 @@ def load(stem: str) -> ctypes.CDLL:
             lib.moegan_cuda_error_string.argtypes = [ctypes.c_int]
             _libs[stem] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def entry(stem: str, name: str, argtypes: tuple):
+    """(library, C entry point `name` of csrc/<stem>.cu), its argument types set once."""
+    lib = load(stem)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    return lib, fn
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

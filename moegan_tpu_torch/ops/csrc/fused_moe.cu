@@ -9,317 +9,423 @@
 //   logits = ((x @ fw) @ cw_f + text_logits) * inv_temp, clipped to +-20
 //   probs  = softmax -> floor 1e-6 -> renorm  (-> hard: multi-hot of the
 //            maxima, renormalised, so a tie splits evenly)
-//   out    = sum_e bf16(p_e * bf16(gelu_erf(x @ W1_e + b1_e))) @ W2_e + probs @ b2
+//   out    = bf16(sum_e bf16(p_e * bf16(gelu(x @ W1_e + b1_e))) @ W2_e + probs @ b2)
 //
-// The rounding of p_e*h to bf16 before the second product is v2's
-// (fused_moe.py:759); under hard routing it is exact.
+// with gelu's erf by Abramowitz-Stegun 7.1.26, as the TPU kernels compute it
+// (fused_moe.py:39-56, |error| <= 1.5e-7). The rounding of p_e*h to bf16
+// before the second product is v2's (fused_moe.py:759); under hard routing
+// it is exact.
 //
 // The same kernel, instantiated without the router (kRouter = false), is
 // the expert-parallel combine moegan_moe_combine_fwd. It replaces the TPU
-// kernels ::_combine_kernel (v1) and ::_combine_kernel_v2, launched by
-// moe_ffn_combine under expert parallelism:
+// kernels ::_combine_kernel (v1) and ::_combine_kernel_v2: the same sum over
+// the E experts it is given (a rank's local shard), with probs [T, E] read
+// from memory (soft, or one-hot at eval), written as the rank's bf16
+// partial, which the caller adds over the ranks.
 //
-//   out = sum_e bf16(p_e * bf16(gelu_erf(x @ W1_e + b1_e))) @ W2_e + probs @ b2
+// What bounds it on the H100: 4*T*C*F*E tensor FLOPs (17.2 GFLOP a block of
+// the 64x64 generator at training batch 64, 0.017 ms at the 989 TFLOP/s
+// bf16 peak) and T*E*F GELUs of one reciprocal and one ex2 each on the SFUs
+// (16 a clock on each SM: 0.025 ms a block at batch 64). Where each hidden
+// unit has only 4C = 128-256 tensor FLOPs (C = 32-64, res 32 and 64) the
+// GELU's ~20 FP32 instructions outweigh its MMAs: those blocks are
+// elementwise-bound. Under hard routing at serving batch the weights'
+// bytes bound it instead.
 //
-// over the E experts it is given (a rank's local shard), with probs [T, E]
-// read from memory (soft, or one-hot at eval). It writes the rank's
-// partial sum in bf16; the caller adds the ranks' partials. Experts that
-// no token of a tile weighs are skipped, as under hard routing above.
-//
-// Design: block (i, s) of the grid takes token tile i (BT tokens) and the
-// s-th of `splits` contiguous ranges of the (expert, F-chunk) loop, so that
-// a layer with few token tiles (res 4: T/BT = 8 at batch 16) still fills the
-// card. The x tile stays in shared memory; each (expert, F-chunk of width
-// FC) step stages one [C, FC] slice of W1 and one [FC, C] slice of W2 with
-// cp.async, so the [BT, F] activation never reaches device memory. Both
-// products and the router's x @ fw run on the tensor cores through WMMA
-// (bf16 in, fp32 accumulate, 16x16x16); the [BT, C] fp32 output accumulator
-// lives in shared memory. Every block of a tile computes the tile's routing
-// itself. Under hard routing a block skips the experts that no token of its
-// tile selected (their p_e is exactly 0, so the sum is unchanged). With
-// splits > 1 each block writes its partial sum to a [splits, T, C]
-// workspace, and a small second kernel of the same launch adds the partials
-// in split order (so the result does not depend on which block ran when)
-// plus probs @ b2. BT and FC are chosen from the 227 KB of shared memory a
-// block may use, `splits` from the SM count. Ragged token tiles (T not a
-// multiple of BT) are masked. C and F must be multiples of 16, the router
-// width a multiple of 8, E at most 16.
-//
-// What bounds it: at the serving shapes the FFN's FLOPs at the bf16 tensor-
-// core rate and its weight bytes are both far below what this version
-// reaches. It stages each weight slice synchronously (no overlap of a load
-// with the previous slice's products), round-trips the output accumulator
-// through shared memory at every F-chunk, and reads each expert's weights
-// once per token tile; wgmma, a ring of TMA-fed stages and register-resident
-// accumulators are the next steps.
+// Design (moe_tiles.cuh for the block shapes): block (i, s) of the grid
+// takes token tile i (BT = 64 tokens, 32 at C > 256) and the s-th of
+// `splits` contiguous ranges of the (expert, chunk of FC = 64 hidden units)
+// loop, so a layer with few tiles still fills the card. Each warp owns a
+// 16-token strip and CP / CW output columns:
+//   - z = x W1[:, chunk] by mma.sync m16n8k16 (bf16 in, fp32 accumulate)
+//     with x and the W1 slice read from shared memory by ldmatrix; z stays
+//     in C fragments;
+//   - b1, the GELU and p_e in registers; the C tile pairs packed to bf16x2
+//     are the A fragments of acc += ph W2[chunk, :] (with CW > 1 they go
+//     through a [BT, FC] bf16 tile, since each column warp needs the whole
+//     chunk);
+//   - the [16, CP / CW] fp32 output accumulator stays in registers for the
+//     whole loop (<= 64 a thread).
+// Weight slices are staged by cp.async: up to C = 128 both slices of the
+// next used chunk land in a second buffer while this chunk is computed (one
+// barrier a chunk); at C = 256-512, where two buffers of each would not fit
+// beside the x tile, the W2 slice of a chunk lands while z is computed and
+// the next W1 slice while ph W2 is. The router's x @ fw runs on the same
+// warp products, FC router columns at a time, compiled for up to 4 experts
+// (the model's) or 16. Under hard routing a block skips the experts that no
+// token of its tile selected (their p_e is 0).
+// With splits > 1 each block writes its partial sum to a [splits, T, C]
+// workspace, and a second kernel of the same launch adds the partials in
+// split order (so the result does not depend on which block ran when) plus
+// probs @ b2. Ragged token tiles are masked; C <= 512 and F multiples of
+// 16, the router width a multiple of 8, E at most 16. The splits come from
+// ops/fused_moe.py::moe_plan, which this file checks.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "moe_tiles.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace moe;
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int MAX_E = 16;
-// 227 KB of opt-in shared memory per block on H100, less room for the
-// kernel's static shared variables.
-constexpr size_t SMEM_LIMIT = 232448 - 1024;
-
-__host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
-
-// Shared-memory tiles. Each row is padded by 16 bytes so that the rows of a
-// 16x16 WMMA fragment fall on different banks (the unpadded strides, 64 B
-// to 2 KB, put every row of a fragment on the same banks).
-struct Layout {
-  int ldx, ldw1, ldw2, ldz, ldh, ldacc;
-  size_t x, w1, w2, z, h, acc, lg, total;
-  __host__ __device__ Layout(int BT, int FC, int C, int E) {
-    ldx = C + 8;     // bf16 [BT, C]
-    ldw1 = FC + 8;   // bf16 [C, FC]
-    ldw2 = C + 8;    // bf16 [FC, C]
-    ldz = FC + 4;    // fp32 [BT, FC]
-    ldh = FC + 8;    // bf16 [BT, FC]
-    ldacc = C + 4;   // fp32 [BT, C]
-    size_t off = 0;
-    x = off; off += align128(sizeof(bf16) * BT * ldx);
-    w1 = off; off += align128(sizeof(bf16) * C * ldw1);
-    w2 = off; off += align128(sizeof(bf16) * FC * ldw2);
-    z = off; off += align128(sizeof(float) * BT * ldz);
-    h = off; off += align128(sizeof(bf16) * BT * ldh);
-    acc = off; off += align128(sizeof(float) * BT * ldacc);
-    lg = off; off += align128(sizeof(float) * BT * E);
-    total = off;
+// Routing probabilities of one token from its raw logits l (router product
+// plus text logits): * inv_temp, clip +-20, softmax, floor 1e-6, renorm, and
+// under `hard` the multi-hot of the maxima renormalised (a tie splits
+// evenly), as moegan_tpu/ops/fused_moe.py::_routing_probs.
+template <int NE>
+__device__ __forceinline__ void route(float (&p)[NE], int E, float it, bool hard) {
+  // Every loop is unrolled over NE >= E (experts past E skipped), so p stays in registers.
+  float mx = -INFINITY;
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    if (e < E) {
+      p[e] = fminf(fmaxf(p[e] * it, -20.f), 20.f);
+      mx = fmaxf(mx, p[e]);
+    }
   }
-};
-
-// Asynchronous 16-byte copy of 8 bf16 values, global -> shared (both aligned).
-__device__ inline void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ inline void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ inline void zero16(void* dst) { *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0); }
-
-// Cm[M, N] (+)= A[M, K] @ B[K, N]: bf16 row-major operands and an fp32
-// row-major result, all in shared memory; one 16x16 output tile per warp at
-// a time. M, N, K multiples of 16.
-__device__ void mma_tiles(const bf16* A, int lda, const bf16* B, int ldb, float* Cm, int ldc,
-                          int M, int N, int K, bool accumulate) {
-  const int warp = threadIdx.x / 32, nt = N / 16;
-  for (int id = warp; id < (M / 16) * nt; id += NWARPS) {
-    const int mi = id / nt, ni = id % nt;
-    float* dst = Cm + mi * 16 * ldc + ni * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (accumulate) {
-      wmma::load_matrix_sync(acc, dst, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(acc, 0.f);
+  float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    if (e < E) {
+      p[e] = expf(p[e] - mx);
+      sum += p[e];
     }
-    for (int kk = 0; kk < K / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, A + mi * 16 * lda + kk * 16, lda);
-      wmma::load_matrix_sync(fb, B + kk * 16 * ldb + ni * 16, ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
+  }
+  float sum2 = 0.f;
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    if (e < E) {
+      p[e] = fminf(fmaxf(p[e] / sum, 1e-6f), 1.f);
+      sum2 += p[e];
     }
-    wmma::store_matrix_sync(dst, acc, ldc, wmma::mem_row_major);
+  }
+  float pmax = 0.f;
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    if (e < E) {
+      p[e] = p[e] / sum2;
+      pmax = fmaxf(pmax, p[e]);
+    }
+  }
+  if (hard) {
+    float n = 0.f;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) n += (e < E && p[e] == pmax) ? 1.f : 0.f;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) p[e] = (p[e] == pmax) ? 1.f / n : 0.f;
   }
 }
 
-// Stage columns [j0, j0 + FC) of a row-major [rows, ld] bf16 matrix into a
-// [rows, FC] shared tile with row stride ldd; columns at or past `ncols`
-// are zero.
-__device__ inline void stage_cols(bf16* dst, int ldd, const bf16* src, int rows, int ld, int j0,
-                                  int FC, int ncols) {
-  const int fc8 = FC / 8;
-  for (int i = threadIdx.x; i < rows * fc8; i += NTHREADS) {
-    const int r = i / fc8, j = (i % fc8) * 8;
-    if (j0 + j < ncols) {
-      cp_async16(dst + r * ldd + j, src + (long long)r * ld + j0 + j);
-    } else {
-      zero16(dst + r * ldd + j);
+// The routing of a token tile (rows t0 .. t0 + BT - 1 of T), into sP [BT][PE]
+// (zero for rows past T). The router product x @ fw runs on the tensor cores
+// FC hidden columns at a time: fw's columns staged into sW ([CP][FC + 8], the
+// W1 slice buffer), each warp taking its strip and its FC / CW columns, then
+// times cw_f in fp32 into per-thread logit sums, reduced across the quad by
+// shuffles and across the strip's column warps through sLG [CW][BT][PE] in
+// warp order. With `used`, marks the experts that some token of the tile
+// selects. Compiled for NE >= E experts (4, the model's, or MAX_E), so its
+// loops over the experts are unrolled without idle iterations. Every thread
+// calls it; sX must have landed; it ends in a barrier.
+template <int CP, int NE>
+__device__ void router_tile(const bf16* sX, bf16* sW, float* sLG, float* sP, int* used,
+                            const bf16* __restrict__ fw, const float* __restrict__ cw,
+                            const float* __restrict__ tl, const float* __restrict__ inv_temp,
+                            int t0, int T, int C, int Hd, int E, bool hard) {
+  using L = Tile<CP>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
+  const int row0 = (warp / L::CW) * 16, cg = warp % L::CW;
+  float l0[NE], l1[NE];  // logit sums of rows g and g + 8 over this thread's columns
+#pragma unroll
+  for (int e = 0; e < NE; ++e) l0[e] = l1[e] = 0.f;
+  for (int j0 = 0; j0 < Hd; j0 += FC) {
+    stage_tile<CP, FC, L::NT>(sW, fw, Hd, 0, C, j0, Hd);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    float z[L::NZ][4];
+    zero_tiles(z);
+    mma_kn<CP / 16, L::NZ, CP, FC>(z, sX, row0, 0, sW, cg * (FC / L::CW));
+#pragma unroll
+    for (int n = 0; n < L::NZ; ++n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + cg * (FC / L::CW) + n * 8 + 2 * tq + h;
+        if (j < Hd) {
+#pragma unroll
+          for (int e = 0; e < NE; ++e) {
+            if (e < E) {
+              const float w = cw[j * E + e];
+              l0[e] = fmaf(z[n][h], w, l0[e]);
+              l1[e] = fmaf(z[n][2 + h], w, l1[e]);
+            }
+          }
+        }
+      }
     }
+    __syncthreads();  // every warp is done with sW before the next columns land
+  }
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    if (e < E) {  // the same for every lane
+      l0[e] += __shfl_xor_sync(0xffffffffu, l0[e], 1);
+      l0[e] += __shfl_xor_sync(0xffffffffu, l0[e], 2);
+      l1[e] += __shfl_xor_sync(0xffffffffu, l1[e], 1);
+      l1[e] += __shfl_xor_sync(0xffffffffu, l1[e], 2);
+    }
+  }
+  if (tq == 0) {
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      if (e < E) {
+        sLG[(cg * L::BT + row0 + g) * PE + e] = l0[e];
+        sLG[(cg * L::BT + row0 + g + 8) * PE + e] = l1[e];
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < L::BT; r += L::NT) {
+    const bool ok = t0 + r < T;
+    float p[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      float s = 0.f;
+      if (e < E) {
+        for (int c = 0; c < L::CW; ++c) s += sLG[(c * L::BT + r) * PE + e];
+        if (ok) s += tl[(long long)(t0 + r) * E + e];
+      }
+      p[e] = s;
+    }
+    route(p, E, inv_temp[0], hard);
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      if (e < E) {
+        sP[r * PE + e] = ok ? p[e] : 0.f;
+        if (used != nullptr && ok && p[e] > 0.f) used[e] = 1;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// router_tile for the E at hand: the 4-expert instance or the general one.
+template <int CP>
+__device__ void route_tile(const bf16* sX, bf16* sW, float* sLG, float* sP, int* used,
+                           const bf16* __restrict__ fw, const float* __restrict__ cw,
+                           const float* __restrict__ tl, const float* __restrict__ inv_temp, int t0,
+                           int T, int C, int Hd, int E, bool hard) {
+  if (E <= 4) {
+    router_tile<CP, 4>(sX, sW, sLG, sP, used, fw, cw, tl, inv_temp, t0, T, C, Hd, E, hard);
+  } else {
+    router_tile<CP, MAX_E>(sX, sW, sLG, sP, used, fw, cw, tl, inv_temp, t0, T, C, Hd, E, hard);
   }
 }
 
-// Stage `rows` full rows of a row-major [*, C] bf16 matrix (zero past `valid`).
-__device__ inline void stage_rows(bf16* dst, int ldd, const bf16* src, int rows, int valid, int C) {
-  const int c8 = C / 8;
-  for (int i = threadIdx.x; i < rows * c8; i += NTHREADS) {
-    const int r = i / c8, c = (i % c8) * 8;
-    if (r < valid) {
-      cp_async16(dst + r * ldd + c, src + (long long)r * C + c);
-    } else {
-      zero16(dst + r * ldd + c);
-    }
-  }
+// Dynamic shared memory of the forward at padded width CP: the x tile, NB
+// W1 slices [CP][FC] and NB W2 slices [FC][CP], with CW > 1 the [BT][FC] ph
+// tile, and the [BT][PE] probabilities. The router's logit partials
+// [CW][BT][PE] borrow the first W2 slice before the expert loop.
+template <int CP>
+constexpr int fwd_smem_bytes() {
+  using L = Tile<CP>;
+  return 2 * (L::BT * pitch(CP) + L::NB * (CP * pitch(FC) + FC * pitch(CP)) +
+              (L::CW > 1 ? L::BT * pitch(FC) : 0)) +
+         4 * L::BT * PE;
 }
 
-// kRouter: compute the routing from the router inputs (fused_moe_fwd). Without
-// it the routing probabilities are read from probs_in [T, E] and the router
-// arguments are unused (moe_combine_fwd); the rest of the kernel is shared.
-template <bool kRouter>
-__global__ void __launch_bounds__(NTHREADS)
-fused_moe_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
-                     const float* __restrict__ cw, const float* __restrict__ tl,
-                     const float* __restrict__ inv_temp, const float* __restrict__ probs_in,
-                     const bf16* __restrict__ w1,
-                     const float* __restrict__ b1, const bf16* __restrict__ w2,
-                     const float* __restrict__ b2, bf16* __restrict__ out,
-                     float* __restrict__ probs, float* __restrict__ ws, int T, int C, int Hd,
-                     int E, int F, int BT, int FC, int hard) {
+template <bool kRouter, int CP>
+__global__ void __launch_bounds__(Tile<CP>::NT)
+moe_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
+               const float* __restrict__ cw, const float* __restrict__ tl,
+               const float* __restrict__ inv_temp, const float* __restrict__ probs_in,
+               const bf16* __restrict__ w1, const float* __restrict__ b1,
+               const bf16* __restrict__ w2, const float* __restrict__ b2, bf16* __restrict__ out,
+               float* __restrict__ probs, float* __restrict__ ws, int T, int C, int Hd, int E,
+               int F, int hard) {
+  using L = Tile<CP>;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int s_used[MAX_E];
-  const Layout L(BT, FC, C, E);
-  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
-  bf16* sW1 = reinterpret_cast<bf16*>(smem + L.w1);
-  bf16* sW2 = reinterpret_cast<bf16*>(smem + L.w2);
-  float* sZ = reinterpret_cast<float*>(smem + L.z);
-  bf16* sH = reinterpret_cast<bf16*>(smem + L.h);
-  float* sAcc = reinterpret_cast<float*>(smem + L.acc);
-  float* sP = reinterpret_cast<float*>(smem + L.lg);  // [BT, E] logits, then probs
+  bf16* sX = reinterpret_cast<bf16*>(smem);  // [BT][CP + 8]
+  bf16* sW1 = sX + L::BT * pitch(CP);        // [NB][CP][FC + 8]
+  bf16* sW2 = sW1 + L::NB * CP * pitch(FC);  // [NB][FC][CP + 8]
+  bf16* sPH = sW2 + L::NB * FC * pitch(CP);  // [BT][FC + 8], CW > 1
+  float* sP = reinterpret_cast<float*>(sPH + (L::CW > 1 ? L::BT * pitch(FC) : 0));  // [BT][PE]
+  float* sLG = reinterpret_cast<float*>(sW2);  // [CW][BT][PE], the router's partials
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, tq = lane & 3;
+  const int row0 = (warp / L::CW) * 16, cg = warp % L::CW;
   const int split = blockIdx.y, splits = gridDim.y;
-  const int t0 = blockIdx.x * BT;
-  const int rows = min(BT, T - t0);
+  const int t0 = blockIdx.x * L::BT;
 
-  // x tile (rows past T are zero), zeroed accumulators.
-  stage_rows(sX, L.ldx, x + (long long)t0 * C, BT, rows, C);
-  for (int i = tid; i < BT * L.ldacc; i += NTHREADS) sAcc[i] = 0.f;
-  for (int i = tid; i < BT * E; i += NTHREADS) sP[i] = 0.f;
-  if (tid < E) s_used[tid] = (kRouter && !hard) ? 1 : 0;
+  stage_tile<L::BT, CP, L::NT>(sX, x, C, t0, T, 0, C);
+  cp_async_commit();
+  if (tid < MAX_E) s_used[tid] = (kRouter && !hard) ? 1 : 0;
   cp_async_wait_all();
   __syncthreads();
 
-  if constexpr (!kRouter) {
+  if constexpr (kRouter) {
+    route_tile<CP>(sX, sW1, sLG, sP, hard ? s_used : nullptr, fw, cw, tl, inv_temp, t0, T, C, Hd,
+                   E, hard != 0);
+    if (split == 0) {
+      for (int i = tid; i < L::BT * E; i += L::NT) {
+        const int r = i / E, e = i % E;
+        if (t0 + r < T) probs[(long long)(t0 + r) * E + e] = sP[r * PE + e];
+      }
+    }
+  } else {
     // The given probabilities; an expert that no token of the tile weighs
     // (p exactly 0, as under one-hot routing) is skipped below.
-    for (int i = tid; i < rows * E; i += NTHREADS) {
-      const float p = probs_in[(long long)t0 * E + i];
+    for (int i = tid; i < L::BT * PE; i += L::NT) {
+      const int r = i / PE, e = i % PE;
+      const float p = (e < E && t0 + r < T) ? probs_in[(long long)(t0 + r) * E + e] : 0.f;
       sP[i] = p;
-      if (p != 0.f) s_used[i % E] = 1;
+      if (p != 0.f) s_used[e] = 1;
     }
     __syncthreads();
-  } else {
-    // Router logits: (x @ fw) @ cw_f, FC hidden columns at a time; the
-    // [BT, FC] slice of x @ fw goes through the W1 staging buffer and sZ.
-    for (int j0 = 0; j0 < Hd; j0 += FC) {
-      stage_cols(sW1, L.ldw1, fw, C, Hd, j0, FC, Hd);
-      cp_async_wait_all();
-      __syncthreads();
-      mma_tiles(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C, false);
-      __syncthreads();
-      for (int i = tid; i < BT * E; i += NTHREADS) {
-        const int r = i / E, e = i % E;
-        float s = 0.f;
-        for (int jj = 0; jj < FC && j0 + jj < Hd; ++jj) s = fmaf(sZ[r * L.ldz + jj], cw[(j0 + jj) * E + e], s);
-        sP[i] += s;
-      }
-      __syncthreads();
-    }
-
-    // Routing probabilities, one thread per token; under hard routing, mark
-    // the experts that some token of the tile selected.
-    for (int r = tid; r < BT; r += NTHREADS) {
-      const float it = inv_temp[0];
-      float p[MAX_E];
-      float mx = -INFINITY;
-      for (int e = 0; e < E; ++e) {
-        const float lg = (sP[r * E + e] + (r < rows ? tl[(long long)(t0 + r) * E + e] : 0.f)) * it;
-        p[e] = fminf(fmaxf(lg, -20.f), 20.f);
-        mx = fmaxf(mx, p[e]);
-      }
-      float sum = 0.f;
-      for (int e = 0; e < E; ++e) {
-        p[e] = expf(p[e] - mx);
-        sum += p[e];
-      }
-      float sum2 = 0.f;
-      for (int e = 0; e < E; ++e) {
-        p[e] = fminf(fmaxf(p[e] / sum, 1e-6f), 1.f);
-        sum2 += p[e];
-      }
-      float pmax = 0.f;
-      for (int e = 0; e < E; ++e) {
-        p[e] = p[e] / sum2;
-        pmax = fmaxf(pmax, p[e]);
-      }
-      if (hard) {
-        float n = 0.f;
-        for (int e = 0; e < E; ++e) n += (p[e] == pmax) ? 1.f : 0.f;
-        for (int e = 0; e < E; ++e) {
-          p[e] = (p[e] == pmax) ? 1.f / n : 0.f;
-          if (p[e] > 0.f && r < rows) s_used[e] = 1;
-        }
-      }
-      for (int e = 0; e < E; ++e) sP[r * E + e] = p[e];
-    }
-    __syncthreads();
-    if (split == 0) {
-      for (int i = tid; i < rows * E; i += NTHREADS) probs[(long long)t0 * E + i] = sP[i];
-    }
   }
 
-  // This block's share of the (expert, F-chunk) loop.
-  const int nfc = F / FC, nch = E * nfc;
+  // This block's share of the (expert, chunk) loop, used experts only.
+  const int nfc = (F + FC - 1) / FC, nch = E * nfc;
   const int ch_end = (int)((long long)(split + 1) * nch / splits);
-  for (int ch = (int)((long long)split * nch / splits); ch < ch_end; ++ch) {
+  auto next_used = [&](int ch) {
+    while (ch < ch_end && !s_used[ch / nfc]) ++ch;
+    return ch;
+  };
+  auto stage_w1 = [&](int ch, int b) {
+    stage_tile<CP, FC, L::NT>(sW1 + b * CP * pitch(FC), w1 + (long long)(ch / nfc) * C * F, F, 0,
+                              C, (ch % nfc) * FC, F);
+  };
+  auto stage_w2 = [&](int ch, int b) {
+    stage_tile<FC, CP, L::NT>(sW2 + b * FC * pitch(CP), w2 + (long long)(ch / nfc) * F * C, C,
+                              (ch % nfc) * FC, F, 0, C);
+  };
+
+  float acc[L::NA][4];
+  zero_tiles(acc);
+  const int zc0 = cg * (FC / L::CW);  // the warp's first column of a chunk
+  const int ac0 = cg * (CP / L::CW);  // the warp's first output column
+
+  // z = x W1-slice, then ph = bf16(p_e * bf16(gelu(z + b1))) packed: ph[n][0]
+  // row g, ph[n][1] row g + 8 (and, with CW > 1, into the ph tile).
+  auto z_ph = [&](int ch, const bf16* w1s, uint32_t (&ph)[L::NZ][2]) {
     const int e = ch / nfc, f0 = (ch % nfc) * FC;
-    if (!s_used[e]) continue;  // the same for every thread of the block
-    // W1[e][:, f0:f0+FC] as [C, FC] and W2[e][f0:f0+FC, :] as [FC, C].
-    stage_cols(sW1, L.ldw1, w1 + (long long)e * C * F, C, F, f0, FC, F);
-    stage_rows(sW2, L.ldw2, w2 + ((long long)e * F + f0) * C, FC, FC, C);
-    cp_async_wait_all();
-    __syncthreads();
-
-    mma_tiles(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C, false);  // z = x @ W1 slice
-    __syncthreads();
-
-    // h = bf16(gelu_erf(z + b1)); ph = bf16(h * p_e).
-    for (int i = tid; i < BT * FC; i += NTHREADS) {
-      const int r = i / FC, j = i % FC;
-      const float z = sZ[r * L.ldz + j] + b1[(long long)e * F + f0 + j];
-      const float g = 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
-      const float hv = __bfloat162float(__float2bfloat16(g));
-      sH[r * L.ldh + j] = __float2bfloat16(hv * sP[r * E + e]);
+    float z[L::NZ][4];
+    zero_tiles(z);
+    mma_kn<CP / 16, L::NZ, CP, FC>(z, sX, row0, 0, w1s, zc0);
+    const float pe0 = sP[(row0 + g) * PE + e], pe1 = sP[(row0 + g + 8) * PE + e];
+#pragma unroll
+    for (int n = 0; n < L::NZ; ++n) {
+      const int f = f0 + zc0 + n * 8 + 2 * tq;  // F is even: f < F means f + 1 < F
+      const float2 bb = f < F ? *reinterpret_cast<const float2*>(b1 + (long long)e * F + f)
+                              : make_float2(0.f, 0.f);
+      float ez;
+      float h[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float zz = z[n][i] + ((i & 1) ? bb.y : bb.x);
+        h[i] = round_bf16(zz * gelu_cdf(zz, ez));
+      }
+      ph[n][0] = pack_bf16(h[0] * pe0, h[1] * pe0);
+      ph[n][1] = pack_bf16(h[2] * pe1, h[3] * pe1);
+      if constexpr (L::CW > 1) {
+        *reinterpret_cast<uint32_t*>(sPH + (row0 + g) * pitch(FC) + zc0 + n * 8 + 2 * tq) = ph[n][0];
+        *reinterpret_cast<uint32_t*>(sPH + (row0 + g + 8) * pitch(FC) + zc0 + n * 8 + 2 * tq) =
+            ph[n][1];
+      }
     }
-    __syncthreads();
+  };
+  // acc += ph W2-slice
+  auto ph_w2 = [&](const bf16* w2s, const uint32_t (&ph)[L::NZ][2]) {
+#pragma unroll
+    for (int ks = 0; ks < FC / 16; ++ks) {
+      uint32_t a[4];
+      if constexpr (L::CW == 1) {
+        packed_a(a, ph, ks);
+      } else {
+        load_a<FC>(a, sPH, row0, ks * 16);
+      }
+#pragma unroll
+      for (int np = 0; np < L::NA / 2; ++np) {
+        uint32_t b[4];
+        load_b<CP>(b, w2s, ks * 16, ac0 + np * 16);
+        mma(acc[2 * np], a, b[0], b[1]);
+        mma(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  };
 
-    mma_tiles(sH, L.ldh, sW2, L.ldw2, sAcc, L.ldacc, BT, C, FC, true);  // acc += ph @ W2 slice
-    __syncthreads();
+  int ch = next_used((int)((long long)split * nch / splits));
+  if constexpr (L::NB == 2) {
+    // Both slices of the next used chunk land while this one is computed.
+    if (ch < ch_end) {
+      stage_w1(ch, 0);
+      stage_w2(ch, 0);
+      cp_async_commit();
+    }
+    for (int b = 0; ch < ch_end; b ^= 1) {
+      const int nxt = next_used(ch + 1);
+      cp_async_wait_all();
+      __syncthreads();  // chunk ch landed; every warp is done with buffer b ^ 1
+      if (nxt < ch_end) {
+        stage_w1(nxt, b ^ 1);
+        stage_w2(nxt, b ^ 1);
+        cp_async_commit();
+      }
+      uint32_t ph[L::NZ][2];
+      z_ph(ch, sW1 + b * CP * pitch(FC), ph);
+      ph_w2(sW2 + b * FC * pitch(CP), ph);
+      ch = nxt;
+    }
+  } else {
+    // One buffer each: the W2 slice lands while z is computed, the next W1
+    // slice while ph W2 is.
+    if (ch < ch_end) {
+      stage_w1(ch, 0);
+      cp_async_commit();
+    }
+    while (ch < ch_end) {
+      stage_w2(ch, 0);
+      cp_async_commit();
+      cp_async_wait<1>();  // this chunk's W1 slice; its W2 slice may still be in flight
+      __syncthreads();
+      uint32_t ph[L::NZ][2];
+      z_ph(ch, sW1, ph);
+      cp_async_wait<0>();  // this chunk's W2 slice
+      __syncthreads();     // every warp is done with sW1; the ph tile is whole
+      const int nxt = next_used(ch + 1);
+      if (nxt < ch_end) {
+        stage_w1(nxt, 0);
+        cp_async_commit();
+      }
+      ph_w2(sW2, ph);
+      __syncthreads();  // every warp is done with sW2 and sPH
+      ch = nxt;
+    }
   }
 
-  if (splits > 1) {
-    // This block's partial sum; moe_split_sum_kernel finishes the tile.
-    const int c4 = C / 4;
-    float4* part = reinterpret_cast<float4*>(ws + ((long long)split * T + t0) * C);
-    for (int i = tid; i < rows * c4; i += NTHREADS) {
-      const int r = i / c4, c = (i % c4) * 4;
-      part[i] = *reinterpret_cast<const float4*>(sAcc + r * L.ldacc + c);
+  // Rows g and g + 8 of the strip, columns c, c + 1 of each output tile.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + g + 8 * half, t = t0 + r;
+    if (t >= T) continue;
+#pragma unroll
+    for (int n = 0; n < L::NA; ++n) {
+      const int c = ac0 + n * 8 + 2 * tq;
+      if (c >= C) continue;
+      float v0 = acc[n][2 * half], v1 = acc[n][2 * half + 1];
+      if (splits > 1) {  // this block's partial sum; moe_split_sum_kernel finishes the tile
+        *reinterpret_cast<float2*>(ws + ((long long)split * T + t) * C + c) = make_float2(v0, v1);
+      } else {  // out = bf16(acc + probs @ b2)
+        for (int e2 = 0; e2 < E; ++e2) {
+          const float p = sP[r * PE + e2];
+          v0 = fmaf(p, b2[(long long)e2 * C + c], v0);
+          v1 = fmaf(p, b2[(long long)e2 * C + c + 1], v1);
+        }
+        *reinterpret_cast<uint32_t*>(out + (long long)t * C + c) = pack_bf16(v0, v1);
+      }
     }
-    return;
-  }
-  // out = bf16(acc + probs @ b2).
-  for (int i = tid; i < rows * C; i += NTHREADS) {
-    const int r = i / C, c = i % C;
-    float bias = 0.f;
-    for (int e = 0; e < E; ++e) bias = fmaf(sP[r * E + e], b2[(long long)e * C + c], bias);
-    out[(long long)t0 * C + i] = __float2bfloat16(sAcc[r * L.ldacc + c] + bias);
   }
 }
 
-// out = bf16(sum_k ws[k] + probs @ b2) when the (expert, F-chunk) loop was
+// out = bf16(sum_k ws[k] + probs @ b2) when the (expert, chunk) loop was
 // split: the partials are added in split order, so the result does not
 // depend on the order in which the blocks ran.
 __global__ void moe_split_sum_kernel(const float* __restrict__ ws, const float* __restrict__ probs,
@@ -332,79 +438,37 @@ __global__ void moe_split_sum_kernel(const float* __restrict__ ws, const float* 
     for (int k = 0; k < splits; ++k) s += ws[k * n + i];
     const long long t = i / C;
     const int c = static_cast<int>(i % C);
-    float bias = 0.f;
-    for (int e = 0; e < E; ++e) bias = fmaf(probs[t * E + e], b2[(long long)e * C + c], bias);
-    out[i] = __float2bfloat16(s + bias);
+    for (int e = 0; e < E; ++e) s = fmaf(probs[t * E + e], b2[(long long)e * C + c], s);
+    out[i] = __float2bfloat16(s);
   }
 }
 
-// Largest token tile, then widest F-chunk, whose shared memory fits.
-bool pick_tiles(int C, int F, int E, int* bt, int* fc) {
-  const int bts[] = {64, 32, 16};
-  const int fcs[] = {64, 32, 16};
-  for (int b : bts) {
-    for (int f : fcs) {
-      if (F % f != 0) continue;
-      if (Layout(b, f, C, E).total <= SMEM_LIMIT) {
-        *bt = b;
-        *fc = f;
-        return true;
-      }
-    }
-  }
-  return false;
-}
-
-}  // namespace
-
-extern "C" {
-
-const char* moegan_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// The launch plan at (T, C, F, E) on a card with `sms` SMs: token tile, F-chunk
-// and the number of splits of the (expert, F-chunk) loop, enough for about
-// one block per SM. Returns 0 if no tile fits shared memory.
-int moegan_fused_moe_plan(int T, int C, int F, int E, int sms, int* bt, int* fc, int* splits) {
-  if (!pick_tiles(C, F, E, bt, fc)) return 0;
-  const int ntiles = (T + *bt - 1) / *bt;
-  const int nch = E * (F / *fc);
-  const int s = (sms + ntiles - 1) / ntiles;
-  *splits = s < 1 ? 1 : (s > nch ? nch : s);
-  return 1;
-}
-
-}  // extern "C"
-
-namespace {
-
-// The launch of fused_moe_fwd_kernel<kRouter> and, when the (expert, F-chunk)
-// loop is split, of the split sum, which reads the routing from the kernel's
-// probs output (kRouter) or from probs_in.
-template <bool kRouter>
+// The launch of moe_fwd_kernel<kRouter, CP> and, when the (expert, chunk)
+// loop is split, of the split sum, which reads the routing from the
+// kernel's probs output (kRouter) or from probs_in.
+template <bool kRouter, int CP>
 int launch_fwd(const void* x, const void* fw, const void* cw, const void* tl,
                const void* inv_temp, const void* probs_in, const void* w1, const void* b1,
                const void* w2, const void* b2, void* out, void* probs, void* ws, int T, int C,
-               int Hd, int E, int F, int hard, int splits, void* stream) {
-  int bt = 0, fc = 0;
-  if (!pick_tiles(C, F, E, &bt, &fc) || splits < 1 || splits > 65535 ||
+               int Hd, int E, int F, int hard, int splits, cudaStream_t st) {
+  using L = Tile<CP>;
+  constexpr int smem = fwd_smem_bytes<CP>();
+  static_assert(smem <= MAX_SMEM, "forward tiles exceed a block's shared memory");
+  static_assert(4 * L::CW * L::BT * PE <= 2 * FC * pitch(CP), "router partials exceed the W2 slice");
+  if (splits < 1 || splits > 65535 || splits > E * ((F + FC - 1) / FC) ||
       (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L(bt, fc, C, E);
-  cudaError_t err = cudaFuncSetAttribute(fused_moe_fwd_kernel<kRouter>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
+  static unsigned attr_set = 0;
+  cudaError_t err = set_smem_once(moe_fwd_kernel<kRouter, CP>, smem, attr_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((T + bt - 1) / bt, splits);
-  fused_moe_fwd_kernel<kRouter><<<grid, NTHREADS, L.total, st>>>(
+  const dim3 grid((T + L::BT - 1) / L::BT, splits);
+  moe_fwd_kernel<kRouter, CP><<<grid, L::NT, smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(fw), static_cast<const float*>(cw),
       static_cast<const float*>(tl), static_cast<const float*>(inv_temp),
       static_cast<const float*>(probs_in), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<bf16*>(out), static_cast<float*>(probs),
-      static_cast<float*>(ws), T, C, Hd, E, F, bt, fc, hard);
+      static_cast<float*>(ws), T, C, Hd, E, F, hard);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long n = (long long)T * C;
@@ -415,30 +479,58 @@ int launch_fwd(const void* x, const void* fw, const void* cw, const void* tl,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kRouter>
+int dispatch_fwd(const void* x, const void* fw, const void* cw, const void* tl,
+                 const void* inv_temp, const void* probs_in, const void* w1, const void* b1,
+                 const void* w2, const void* b2, void* out, void* probs, void* ws, int T, int C,
+                 int Hd, int E, int F, int hard, int splits, void* stream) {
+  if (T < 1 || C % 16 != 0 || F % 16 != 0 || F < 16 || E < 1 || E > MAX_E ||
+      (kRouter && (Hd < 8 || Hd % 8 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MOE_FWD(CP)                                                                            \
+  launch_fwd<kRouter, CP>(x, fw, cw, tl, inv_temp, probs_in, w1, b1, w2, b2, out, probs, ws, T, \
+                          C, Hd, E, F, hard, splits, st)
+  switch (padded_width(C)) {
+    case 32: return MOE_FWD(32);
+    case 64: return MOE_FWD(64);
+    case 128: return MOE_FWD(128);
+    case 256: return MOE_FWD(256);
+    case 512: return MOE_FWD(512);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MOE_FWD
+}
+
 }  // namespace
 
 extern "C" {
 
-// ws: [splits, T, C] fp32 scratch, unused (may be null) when splits == 1.
-// Returns the cudaError_t of the launches (cudaErrorInvalidValue if no tile
-// fits or the arguments do not match the plan).
+const char* moegan_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// splits from ops/fused_moe.py::moe_plan; ws: [splits, T, C] fp32 scratch,
+// unused (may be null) when splits == 1. Returns the cudaError_t of the
+// launches (cudaErrorInvalidValue if the widths or the splits are not
+// taken).
 int moegan_fused_moe_fwd(const void* x, const void* fw, const void* cw, const void* tl,
                          const void* inv_temp, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, void* probs, void* ws, int T, int C, int Hd,
                          int E, int F, int hard, int splits, void* stream) {
-  return launch_fwd<true>(x, fw, cw, tl, inv_temp, nullptr, w1, b1, w2, b2, out, probs, ws, T,
-                          C, Hd, E, F, hard, splits, stream);
+  return dispatch_fwd<true>(x, fw, cw, tl, inv_temp, nullptr, w1, b1, w2, b2, out, probs, ws, T,
+                            C, Hd, E, F, hard, splits, stream);
 }
 
 // The expert-parallel combine (replaces _combine_kernel and _combine_kernel_v2):
 // out = bf16(sum_e probs[:, e] * FFN_e(x)) over the E experts given, with the
-// routing probs [T, E] fp32 read instead of computed. Same plan, scratch and
-// return code as moegan_fused_moe_fwd.
+// routing probs [T, E] fp32 read instead of computed. Same splits, scratch
+// and return code as moegan_fused_moe_fwd.
 int moegan_moe_combine_fwd(const void* x, const void* probs, const void* w1, const void* b1,
                            const void* w2, const void* b2, void* out, void* ws, int T, int C,
                            int E, int F, int splits, void* stream) {
-  return launch_fwd<false>(x, nullptr, nullptr, nullptr, nullptr, probs, w1, b1, w2, b2, out,
-                           nullptr, ws, T, C, 0, E, F, 0, splits, stream);
+  return dispatch_fwd<false>(x, nullptr, nullptr, nullptr, nullptr, probs, w1, b1, w2, b2, out,
+                             nullptr, ws, T, C, 0, E, F, 0, splits, stream);
 }
 
 }  // extern "C"

@@ -3,508 +3,772 @@
 //
 // Replaces the TPU kernel moegan_tpu/ops/fused_moe.py::_fused_moe_bwd_kernel_v2
 // (launched by _fused_moe_bwd_v2). It also computes what the v1 kernel
-// _bwd_fused_kernel computes: the same gradient. Given the forward's inputs
-// and the output cotangent dout [T, C], it recomputes the soft routing
-// probabilities p, z = x W1_e + b1_e and h = bf16(gelu_erf(z)), and returns
+// _bwd_fused_kernel computes: the same gradient. Given x, the routing
+// probabilities p [T, E] (the forward's soft routing, which its kernel
+// writes), the FFN weights and the output cotangent dout [T, C], it
+// recomputes z = x W1_e + b1_e and h = bf16(gelu(z)) (erf by
+// Abramowitz-Stegun 7.1.26, as the TPU kernels), and returns
 //
 //   g       = dout W2_e^T                       [T, F] per expert
 //   dp[t,e] = sum_f g*h + dout . b2_e           (the combine's cotangent)
 //   dz      = g * p_e * gelu'(z)
-//   dx_ffn  = sum_e dz W1_e^T                   (fp32)
-//   dW1_e   = x^T dz,  db1_e = sum_t dz
+//   dx_ffn  = sum_e bf16(dz) W1_e^T             (fp32)
+//   dW1_e   = x^T bf16(dz),  db1_e = sum_t dz
 //   dW2_e   = bf16(p_e h)^T dout,  db2_e = sum_t p_e dout
 //
-// The router chain's own backward (dx through the router, dfw, dcw, dtl,
-// dinv_temp) is left to the caller, as the TPU path leaves it to XLA.
+// bf16 dz and p*h are the products' operands, as the TPU kernel rounds them
+// (dz.astype(cd), ph = (h*p).astype(cd)). The router chain's own backward
+// (dx through the router, dfw, dcw, dtl, dinv_temp) is left to the caller,
+// as the TPU path leaves it to XLA.
 //
-// Instantiated without the router (kRouter = false), the same launches are
-// moegan_moe_combine_bwd, the backward of the expert-parallel combine. It
-// replaces the TPU kernels ::_combine_bwd_kernel (v1) and
-// ::_combine_bwd_kernel_v2: p is read from a given probs [T, E] (a rank's
-// local expert columns), so dp is the whole probs gradient and dx_ffn the
-// whole x gradient. The TPU path takes that kernel only where its weight-
-// gradient accumulators fit VMEM (_single_bwd_supported) and recomputes in
-// XLA elsewhere; here every block takes the kernel.
+// The one entry point, moegan_moe_combine_bwd, is also the backward of the
+// expert-parallel combine. It replaces the TPU kernels ::_combine_bwd_kernel
+// (v1) and ::_combine_bwd_kernel_v2: there p is a rank's local expert
+// columns, so dp is the whole probs gradient and dx_ffn the whole x
+// gradient.
 //
-// The weight gradients reduce over all T tokens and dx / dp over all E*F
-// hidden units, so one grid cannot own both. Four launches, no atomics, and
-// every fp32 sum in a fixed order (two calls give the same bits):
+// What bounds it on the H100: 10*T*C*F*E tensor FLOPs (42.9 GFLOP a block of
+// the 64x64 generator at batch 64, 0.043 ms at 989 TFLOP/s), T*E*F GELUs
+// with their derivative (one reciprocal, one ex2 each, shared), and at
+// C = 32-64 the ~25 FP32 instructions of each hidden unit. The weight
+// gradients reduce over all T tokens and dx / dp over all E*F hidden units,
+// so one grid cannot own both. Three launches, no atomics, every fp32 sum in
+// a fixed order (two calls give the same bits):
 //
-//   1. moe_bwd_token_kernel, block (token tile i, split s): the x and dout
-//      tiles stay in shared memory while the block walks its share of the
-//      (expert, F-chunk) loop, staging one [C, FC] slice of W1 and one
-//      [FC, C] slice of W2 at a time with cp.async. Per chunk it computes z
-//      and g on the tensor cores (WMMA, bf16 in, fp32 accumulate), p*h, dz
-//      and dp, adds dz W1^T into a [BT, C] fp32 accumulator, writes bf16 dz
-//      and bf16 p*h to a [T, E*F] scratch each, and writes the tile's fp32
-//      column sums of dz (for db1) and, in split 0, of p*dout (for db2).
-//      dx and dp are written as per-split partials.
-//   2. moe_bwd_finish_kernel: dx = sum of the split partials; dp = sum of
-//      the partials + dout . b2; db1, db2 = sums of the tile partials.
-//   3. moe_wgrad_kernel twice: dW1s = x^T dz and dW2s = (p h)^T dout, with
-//      [C, E*F] / [E*F, C] outputs in 64x64 tiles and the T reduction split
-//      over `wsplits` blocks whose partials moe_sum_kernel adds in order.
+//   1. moe_bwd_token_kernel, block (token tile, split) with the forward's
+//      warp layout (moe_tiles.cuh): x and dout tiles stay in shared memory
+//      while the block walks its share of the (expert, chunk) loop. Per
+//      chunk z = x W1-slice and g = dout W2-slice^T by mma.sync into C
+//      fragments; dz, h, g*h in registers (gelu and gelu' share one ex2);
+//      the dp row sums by quad shuffles; bf16 dz packed as the A operand of
+//      dx += dz W1-slice^T, whose [16, CP / CW] fp32 accumulator stays in
+//      registers. Weight slices are staged as in the forward. It writes dx
+//      and dp (+ dout . b2).
+//   2. The weight gradients, by one of two routes chosen by the width
+//      (scratch_route): up to C = 64 moe_wgrad_kernel recomputes z, g, dz
+//      and p*h per token tile in a block that keeps dW1[:, chunk]^T and
+//      dW2[chunk, :] for 64 hidden units in registers (4*T*C*F*E more FLOPs
+//      and one more GELU set, instead of two [T, E*F] bf16 scratches of 268
+//      MB each at res 64, batch 64, written and read back). From C = 128 the
+//      token kernel also writes bf16 dz and p*h to those scratches (17-134
+//      MB there) and per-tile sums of dz and p*dout, and
+//      moe_wgrad_gemm_kernel forms dW1^T = dz^T x and dW2 = (p h)^T dout in
+//      128 x 128 register tiles: a recompute block can keep only C x 16-64
+//      hidden units of sums in registers, too few to reuse its x and dout
+//      tiles well at large C. (scripts/torch_moe_bench.py on an H100 80GB
+//      HBM3: the whole backward of the C = 512 / 256 / 128 blocks at batch
+//      64 took 0.61 / 0.54 / 0.40 ms of device time by recompute, 0.36 /
+//      0.37 / 0.39 ms by scratch.)
+//   3. moe_sum_kernel adds the split partials in order (dx and dp over the
+//      token kernel's splits, the weight gradients over T ranges, db1 and
+//      db2 over token tiles or T ranges).
 //
-// Scratch precision: dz and p*h are stored in bf16. The two weight-gradient
-// products consume them as bf16 operands, as the TPU kernel does
-// (dz.astype(cd), ph = (h*p).astype(cd)), so the rounding is the one the
-// products make anyway, and the two [T, E*F] scratches take 256 MB each at
-// batch 64 instead of 512. db1 is summed from the fp32 dz inside kernel 1.
-//
-// What bounds it: 10*T*C*F*E FLOPs (about 43 GFLOP per block at batch 64)
-// at the bf16 tensor-core rate, and at least the two scratches' traffic.
-// This first version stages every weight slice synchronously, keeps the dx
-// accumulator in shared memory and round-trips z and g through it, so it
-// runs far from either bound; wgmma, a TMA ring and register accumulators
-// are later work. C and F must be multiples of 16, the router width a
-// multiple of 8, and E at most 16.
+// The splits and T ranges come from ops/fused_moe.py::moe_bwd_plan, which
+// this file checks. C <= 512 and F multiples of 16, E at most 16.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include <algorithm>
 
-#include <type_traits>
+#include "moe_tiles.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace moe;
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int MAX_E = 16;
-constexpr size_t SMEM_LIMIT = 232448 - 1024;
-constexpr int WT = 64;   // weight-gradient output tile (rows and columns)
-constexpr int WKT = 32;  // tokens per weight-gradient step
-
-__host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
-
-// Shared-memory tiles of kernel 1, rows padded by 16 bytes against bank
-// conflicts in the WMMA fragment loads.
-struct Layout {
-  int ldx, ldw1, ldw2, ldz, ldh, ldacc;
-  size_t x, dout, w1, w2, z, g, h, acc, p, dp, total;
-  __host__ __device__ Layout(int BT, int FC, int C, int E) {
-    ldx = C + 8;     // bf16 [BT, C] (x and dout)
-    ldw1 = FC + 8;   // bf16 [C, FC]
-    ldw2 = C + 8;    // bf16 [FC, C]
-    ldz = FC + 4;    // fp32 [BT, FC] (z and g)
-    ldh = FC + 8;    // bf16 [BT, FC] (dz)
-    ldacc = C + 4;   // fp32 [BT, C]
-    size_t off = 0;
-    x = off; off += align128(sizeof(bf16) * BT * ldx);
-    dout = off; off += align128(sizeof(bf16) * BT * ldx);
-    w1 = off; off += align128(sizeof(bf16) * C * ldw1);
-    w2 = off; off += align128(sizeof(bf16) * FC * ldw2);
-    z = off; off += align128(sizeof(float) * BT * ldz);
-    g = off; off += align128(sizeof(float) * BT * ldz);
-    h = off; off += align128(sizeof(bf16) * BT * ldh);
-    acc = off; off += align128(sizeof(float) * BT * ldacc);
-    p = off; off += align128(sizeof(float) * BT * E);
-    dp = off; off += align128(sizeof(float) * BT * E);
-    total = off;
-  }
-};
-
-__device__ inline void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+// The route of the weight gradients at padded width CP: from C = 128 on,
+// the token kernel writes bf16 dz and p*h to [T, E*F] scratches (17-134 MB
+// a block of the 64x64 generator at batch 64) and moe_wgrad_gemm_kernel
+// forms the products in wide tiles; below, where the scratches would take
+// 0.5-1 GB, moe_wgrad_kernel recomputes them.
+template <int CP>
+__host__ __device__ constexpr bool scratch_route() {
+  return CP >= 128;
 }
 
-__device__ inline void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+// Dynamic shared memory of the token kernel at padded width CP: x and dout
+// tiles, NB W1 and NB W2 slices, with CW > 1 the [BT][FC] dz tile, the
+// [BT][PE] probabilities, the [CW][BT][PE] dp partials and, on the scratch
+// route, the [RW][FC] db1 partials.
+template <int CP>
+constexpr int token_smem_bytes() {
+  using L = Tile<CP>;
+  return 2 * (2 * L::BT * pitch(CP) + L::NB * (CP * pitch(FC) + FC * pitch(CP)) +
+              (L::CW > 1 ? L::BT * pitch(FC) : 0)) +
+         4 * (L::BT * PE + L::CW * L::BT * PE + (scratch_route<CP>() ? L::RW * FC : 0));
 }
 
-__device__ inline void zero16(void* dst) { *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0); }
-
-// Cm[M, N] (+)= A[M, K] @ B[K, N] on shared-memory operands: bf16 A and B,
-// each row- or column-major, fp32 row-major Cm; one 16x16 output tile per
-// warp at a time. M, N, K multiples of 16.
-template <typename LayoutA, typename LayoutB>
-__device__ void mma_tiles(const bf16* A, int lda, const bf16* B, int ldb, float* Cm, int ldc,
-                          int M, int N, int K, bool accumulate) {
-  constexpr bool a_row = std::is_same<LayoutA, wmma::row_major>::value;
-  constexpr bool b_row = std::is_same<LayoutB, wmma::row_major>::value;
-  const int warp = threadIdx.x / 32, nt = N / 16;
-  for (int id = warp; id < (M / 16) * nt; id += NWARPS) {
-    const int mi = id / nt, ni = id % nt;
-    float* dst = Cm + mi * 16 * ldc + ni * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (accumulate) {
-      wmma::load_matrix_sync(acc, dst, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(acc, 0.f);
-    }
-    for (int kk = 0; kk < K / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb;
-      wmma::load_matrix_sync(fa, a_row ? A + mi * 16 * lda + kk * 16 : A + kk * 16 * lda + mi * 16, lda);
-      wmma::load_matrix_sync(fb, b_row ? B + kk * 16 * ldb + ni * 16 : B + ni * 16 * ldb + kk * 16, ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(dst, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-// Stage columns [j0, j0 + FC) of a row-major [rows, ld] bf16 matrix into a
-// [rows, FC] shared tile with row stride ldd; columns at or past `ncols`
-// are zero.
-__device__ inline void stage_cols(bf16* dst, int ldd, const bf16* src, int rows, int ld, int j0,
-                                  int FC, int ncols) {
-  const int fc8 = FC / 8;
-  for (int i = threadIdx.x; i < rows * fc8; i += NTHREADS) {
-    const int r = i / fc8, j = (i % fc8) * 8;
-    if (j0 + j < ncols) {
-      cp_async16(dst + r * ldd + j, src + (long long)r * ld + j0 + j);
-    } else {
-      zero16(dst + r * ldd + j);
-    }
-  }
-}
-
-// Stage `rows` full rows of a row-major [*, C] bf16 matrix (zero past `valid`).
-__device__ inline void stage_rows(bf16* dst, int ldd, const bf16* src, int rows, int valid, int C) {
-  const int c8 = C / 8;
-  for (int i = threadIdx.x; i < rows * c8; i += NTHREADS) {
-    const int r = i / c8, c = (i % c8) * 8;
-    if (r < valid) {
-      cp_async16(dst + r * ldd + c, src + (long long)r * C + c);
-    } else {
-      zero16(dst + r * ldd + c);
-    }
-  }
-}
-
-// Soft routing probabilities of a token tile, as the forward computes them.
-// sP [BT, E] holds zeros on entry and p on exit (rows past `rows` see zero
-// tokens and no text logits). The router logits (x @ fw) @ cw_f go FC hidden
-// columns at a time through sW [C, FC] and sZ [BT, FC] (row strides ldw,
-// ldz). Every thread of the block calls it; it ends in a barrier.
-__device__ void router_tile(const bf16* sX, int ldx, const bf16* __restrict__ fw,
-                            const float* __restrict__ cw, const float* __restrict__ tl,
-                            const float* __restrict__ inv_temp, bf16* sW, int ldw, float* sZ,
-                            int ldz, float* sP, int t0, int rows, int BT, int C, int Hd, int E,
-                            int FC) {
-  const int tid = threadIdx.x;
-  // Router logits (x @ fw) @ cw_f, FC hidden columns at a time, as the forward.
-  for (int j0 = 0; j0 < Hd; j0 += FC) {
-    stage_cols(sW, ldw, fw, C, Hd, j0, FC, Hd);
-    cp_async_wait_all();
-    __syncthreads();
-    mma_tiles<wmma::row_major, wmma::row_major>(sX, ldx, sW, ldw, sZ, ldz, BT, FC, C, false);
-    __syncthreads();
-    for (int i = tid; i < BT * E; i += NTHREADS) {
-      const int r = i / E, e = i % E;
-      float s = 0.f;
-      for (int jj = 0; jj < FC && j0 + jj < Hd; ++jj) s = fmaf(sZ[r * ldz + jj], cw[(j0 + jj) * E + e], s);
-      sP[i] += s;
-    }
-    __syncthreads();
-  }
-
-  // Soft routing probabilities, one thread per token.
-  for (int r = tid; r < BT; r += NTHREADS) {
-    const float it = inv_temp[0];
-    float p[MAX_E];
-    float mx = -INFINITY;
-    for (int e = 0; e < E; ++e) {
-      const float lg = (sP[r * E + e] + (r < rows ? tl[(long long)(t0 + r) * E + e] : 0.f)) * it;
-      p[e] = fminf(fmaxf(lg, -20.f), 20.f);
-      mx = fmaxf(mx, p[e]);
-    }
-    float sum = 0.f;
-    for (int e = 0; e < E; ++e) {
-      p[e] = expf(p[e] - mx);
-      sum += p[e];
-    }
-    float sum2 = 0.f;
-    for (int e = 0; e < E; ++e) {
-      p[e] = fminf(fmaxf(p[e] / sum, 1e-6f), 1.f);
-      sum2 += p[e];
-    }
-    for (int e = 0; e < E; ++e) sP[r * E + e] = p[e] / sum2;
-  }
-  __syncthreads();
-}
-
-// kRouter: recompute the soft routing from the router inputs (fused_moe_bwd).
-// Without it the routing probabilities are read from probs_in [T, E] and the
-// router arguments are unused (moe_combine_bwd); the rest is shared.
-template <bool kRouter>
-__global__ void __launch_bounds__(NTHREADS)
-moe_bwd_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
-                     const float* __restrict__ cw, const float* __restrict__ tl,
-                     const float* __restrict__ inv_temp, const float* __restrict__ probs_in,
-                     const bf16* __restrict__ w1,
-                     const float* __restrict__ b1, const bf16* __restrict__ w2,
-                     const bf16* __restrict__ dout, bf16* __restrict__ dz_out,
-                     bf16* __restrict__ ph_out, float* __restrict__ ws_dx,
-                     float* __restrict__ ws_dp, float* __restrict__ part_db1,
-                     float* __restrict__ part_db2, int T, int C, int Hd, int E, int F, int BT,
-                     int FC) {
+template <int CP>
+__global__ void __launch_bounds__(Tile<CP>::NT)
+moe_bwd_token_kernel(const bf16* __restrict__ x, const float* __restrict__ probs,
+                     const bf16* __restrict__ w1, const float* __restrict__ b1,
+                     const bf16* __restrict__ w2, const float* __restrict__ b2,
+                     const bf16* __restrict__ dout, float* __restrict__ dx,
+                     float* __restrict__ dp, bf16* __restrict__ dz_out, bf16* __restrict__ ph_out,
+                     float* __restrict__ part_db1, float* __restrict__ part_db2, int T, int C,
+                     int E, int F) {
+  using L = Tile<CP>;
+  constexpr bool kScratch = scratch_route<CP>();
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(BT, FC, C, E);
-  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L.dout);
-  bf16* sW1 = reinterpret_cast<bf16*>(smem + L.w1);
-  bf16* sW2 = reinterpret_cast<bf16*>(smem + L.w2);
-  float* sZ = reinterpret_cast<float*>(smem + L.z);
-  float* sG = reinterpret_cast<float*>(smem + L.g);
-  bf16* sH = reinterpret_cast<bf16*>(smem + L.h);
-  float* sAcc = reinterpret_cast<float*>(smem + L.acc);
-  float* sP = reinterpret_cast<float*>(smem + L.p);
-  float* sDP = reinterpret_cast<float*>(smem + L.dp);
+  bf16* sX = reinterpret_cast<bf16*>(smem);  // [BT][CP + 8]
+  bf16* sDO = sX + L::BT * pitch(CP);        // [BT][CP + 8]
+  bf16* sW1 = sDO + L::BT * pitch(CP);       // [NB][CP][FC + 8]
+  bf16* sW2 = sW1 + L::NB * CP * pitch(FC);  // [NB][FC][CP + 8]
+  bf16* sDZ = sW2 + L::NB * FC * pitch(CP);  // [BT][FC + 8], CW > 1
+  float* sP = reinterpret_cast<float*>(sDZ + (L::CW > 1 ? L::BT * pitch(FC) : 0));  // [BT][PE]
+  float* sDP = sP + L::BT * PE;              // [CW][BT][PE]
+  float* sDB = sDP + L::CW * L::BT * PE;     // [RW][FC], kScratch
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, tq = lane & 3;
+  const int row0 = (warp / L::CW) * 16, cg = warp % L::CW;
   const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
-  const int t0 = tile * BT;
-  const int rows = min(BT, T - t0);
-  const int EF = E * F;
+  const int t0 = tile * L::BT;
+  const long long EF = (long long)E * F;
 
-  stage_rows(sX, L.ldx, x + (long long)t0 * C, BT, rows, C);
-  stage_rows(sDO, L.ldx, dout + (long long)t0 * C, BT, rows, C);
-  for (int i = tid; i < BT * L.ldacc; i += NTHREADS) sAcc[i] = 0.f;
-  for (int i = tid; i < BT * E; i += NTHREADS) {
-    sP[i] = (!kRouter && i < rows * E) ? probs_in[(long long)t0 * E + i] : 0.f;
-    sDP[i] = 0.f;
+  stage_tile<L::BT, CP, L::NT>(sX, x, C, t0, T, 0, C);
+  stage_tile<L::BT, CP, L::NT>(sDO, dout, C, t0, T, 0, C);
+  cp_async_commit();
+  for (int i = tid; i < L::BT * PE; i += L::NT) {
+    const int r = i / PE, e = i % PE;
+    sP[i] = (e < E && t0 + r < T) ? probs[(long long)(t0 + r) * E + e] : 0.f;
   }
+  for (int i = tid; i < L::CW * L::BT * PE; i += L::NT) sDP[i] = 0.f;
   cp_async_wait_all();
   __syncthreads();
 
-  if constexpr (kRouter) {
-    router_tile(sX, L.ldx, fw, cw, tl, inv_temp, sW1, L.ldw1, sZ, L.ldz, sP, t0, rows, BT, C, Hd,
-                E, FC);
-  }
-
-  // This block's share of the (expert, F-chunk) loop.
-  const int nfc = F / FC, nch = E * nfc;
+  const int nfc = (F + FC - 1) / FC, nch = E * nfc;
   const int ch_end = (int)((long long)(split + 1) * nch / splits);
-  for (int ch = (int)((long long)split * nch / splits); ch < ch_end; ++ch) {
+  auto stage_w1 = [&](int ch, int b) {
+    stage_tile<CP, FC, L::NT>(sW1 + b * CP * pitch(FC), w1 + (long long)(ch / nfc) * C * F, F, 0,
+                              C, (ch % nfc) * FC, F);
+  };
+  auto stage_w2 = [&](int ch, int b) {
+    stage_tile<FC, CP, L::NT>(sW2 + b * FC * pitch(CP), w2 + (long long)(ch / nfc) * F * C, C,
+                              (ch % nfc) * FC, F, 0, C);
+  };
+
+  float acc[L::NA][4];  // dx
+  zero_tiles(acc);
+  const int zc0 = cg * (FC / L::CW), ac0 = cg * (CP / L::CW);
+
+  // Columns n0 .. n0 + 8N - 1 of the warp's share of chunk ch, given g and z
+  // there: dz = g p_e gelu'(z + b1) packed bf16 (dzp[n][0] row g, [1] row
+  // g + 8), and the dp partials s0, s1 += g * bf16(gelu(z + b1)). On the
+  // scratch route also bf16 dz and p_e h into the scratches and the strip's
+  // fp32 column sums of dz into sDB.
+  auto dz_tiles = [&](int ch, int n0, auto& gz, auto& z, auto& dzp, float& s0, float& s1) {
+    constexpr int N = sizeof(gz) / sizeof(gz[0]);
     const int e = ch / nfc, f0 = (ch % nfc) * FC;
-    stage_cols(sW1, L.ldw1, w1 + (long long)e * C * F, C, F, f0, FC, F);
-    stage_rows(sW2, L.ldw2, w2 + ((long long)e * F + f0) * C, FC, FC, C);
-    cp_async_wait_all();
-    __syncthreads();
-
-    // z = x W1 slice; g = dout W2 slice^T (W2 slice [FC, C] read column-major).
-    mma_tiles<wmma::row_major, wmma::row_major>(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C,
-                                                false);
-    mma_tiles<wmma::row_major, wmma::col_major>(sDO, L.ldx, sW2, L.ldw2, sG, L.ldz, BT, FC, C,
-                                                false);
-    __syncthreads();
-
-    // Elementwise: sG <- g*h (for dp), sZ <- dz (for db1), sH <- bf16(dz),
-    // and the bf16 dz and p*h scratch rows.
-    for (int i = tid; i < BT * FC; i += NTHREADS) {
-      const int r = i / FC, j = i % FC;
-      const float z = sZ[r * L.ldz + j] + b1[(long long)e * F + f0 + j];
-      const float cdf = 0.5f * (1.f + erff(z * 0.70710678118654752f));
-      const float hv = __bfloat162float(__float2bfloat16(z * cdf));
-      const float pe = sP[r * E + e];
-      const float g = sG[r * L.ldz + j];
-      const float dz = g * pe * (cdf + z * 0.3989422804014327f * expf(-0.5f * z * z));
-      sG[r * L.ldz + j] = g * hv;
-      sZ[r * L.ldz + j] = dz;
-      const bf16 dzb = __float2bfloat16(dz);
-      sH[r * L.ldh + j] = dzb;
-      if (r < rows) {
-        const long long at = (long long)(t0 + r) * EF + e * F + f0 + j;
-        dz_out[at] = dzb;
-        ph_out[at] = __float2bfloat16(hv * pe);
+    const float pe0 = sP[(row0 + g) * PE + e], pe1 = sP[(row0 + g + 8) * PE + e];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int f = f0 + n0 + n * 8 + 2 * tq;
+      const float2 bb = f < F ? *reinterpret_cast<const float2*>(b1 + (long long)e * F + f)
+                              : make_float2(0.f, 0.f);
+      float d[4], hv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float zz = z[n][i] + ((i & 1) ? bb.y : bb.x);
+        float ez;
+        const float cdf = gelu_cdf(zz, ez);
+        const float h = round_bf16(zz * cdf);
+        d[i] = gz[n][i] * (i < 2 ? pe0 : pe1) * fmaf(zz * INV_SQRT_2PI, ez, cdf);
+        if (i < 2) s0 = fmaf(gz[n][i], h, s0);
+        else s1 = fmaf(gz[n][i], h, s1);
+        hv[i] = h;
+      }
+      dzp[n][0] = pack_bf16(d[0], d[1]);
+      dzp[n][1] = pack_bf16(d[2], d[3]);
+      if constexpr (kScratch) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long t = t0 + row0 + g + 8 * half;
+          const float pe = half ? pe1 : pe0;
+          if (t < T && f < F) {
+            *reinterpret_cast<uint32_t*>(dz_out + t * EF + (long long)e * F + f) = dzp[n][half];
+            *reinterpret_cast<uint32_t*>(ph_out + t * EF + (long long)e * F + f) =
+                pack_bf16(hv[2 * half] * pe, hv[2 * half + 1] * pe);
+          }
+        }
+        float c0 = d[0] + d[2], c1 = d[1] + d[3];  // rows g and g + 8; past T dz is 0
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+          c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+        }
+        if (g == 0) {
+          sDB[(row0 / 16) * FC + n0 + n * 8 + 2 * tq] = c0;
+          sDB[(row0 / 16) * FC + n0 + n * 8 + 2 * tq + 1] = c1;
+        }
       }
     }
-    __syncthreads();
+  };
+  // This tile's column sums of fp32 dz over chunk ch, added over the strips
+  // in order (after a barrier that makes sDB whole).
+  auto store_db1 = [&](int ch) {
+    const int f = (ch % nfc) * FC + threadIdx.x;
+    if (threadIdx.x < FC && f < F) {
+      float sum = 0.f;
+      for (int r = 0; r < L::RW; ++r) sum += sDB[r * FC + threadIdx.x];
+      part_db1[(long long)tile * EF + (long long)(ch / nfc) * F + f] = sum;
+    }
+  };
+  // The dp partials of chunk ch into sDP: one lane owns each (column warp,
+  // row, expert) entry.
+  auto flush_dp = [&](int ch, float s0, float s1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (tq == 0) {
+      sDP[(cg * L::BT + row0 + g) * PE + ch / nfc] += s0;
+      sDP[(cg * L::BT + row0 + g + 8) * PE + ch / nfc] += s1;
+    }
+  };
 
-    // Row sums of g*h into dp[:, e]; column sums of dz into this tile's db1.
-    for (int i = tid; i < BT + FC; i += NTHREADS) {
-      if (i < BT) {
-        float s = 0.f;
-        for (int j = 0; j < FC; ++j) s += sG[i * L.ldz + j];
-        sDP[i * E + e] += s;
-      } else {
-        const int j = i - BT;
-        float s = 0.f;
-        for (int r = 0; r < rows; ++r) s += sZ[r * L.ldz + j];
-        part_db1[(long long)tile * EF + e * F + f0 + j] = s;
+  int ch = (int)((long long)split * nch / splits);
+  if constexpr (L::NB == 2) {
+    // Both slices of the next chunk land while this one is computed; the
+    // chunk goes in two halves of 32 columns (g, z, dz, then their two
+    // k-steps of dx), which keeps fewer fragments live.
+    constexpr int NH = L::NZ / 2;
+    if (ch < ch_end) {
+      stage_w1(ch, 0);
+      stage_w2(ch, 0);
+      cp_async_commit();
+    }
+    for (int b = 0; ch < ch_end; ++ch, b ^= 1) {
+      cp_async_wait_all();
+      __syncthreads();  // chunk ch landed; every warp is done with buffer b ^ 1
+      if (ch + 1 < ch_end) {
+        stage_w1(ch + 1, b ^ 1);
+        stage_w2(ch + 1, b ^ 1);
+        cp_async_commit();
+      }
+      const bf16* w1s = sW1 + b * CP * pitch(FC);
+      const bf16* w2s = sW2 + b * FC * pitch(CP);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float gz[NH][4], z[NH][4];
+        zero_tiles(gz);
+        zero_tiles(z);
+        mma_nk<CP / 16, NH, CP, CP>(gz, sDO, row0, 0, w2s, hf * NH * 8);
+        mma_kn<CP / 16, NH, CP, FC>(z, sX, row0, 0, w1s, hf * NH * 8);
+        uint32_t dzp[NH][2];
+        dz_tiles(ch, hf * NH * 8, gz, z, dzp, s0, s1);
+#pragma unroll
+        for (int ks = 0; ks < NH / 2; ++ks) {  // dx += bf16(dz) W1-slice^T
+          uint32_t a[4];
+          packed_a(a, dzp, ks);
+#pragma unroll
+          for (int np = 0; np < L::NA / 2; ++np) {
+            uint32_t bw[4];
+            load_bt<FC>(bw, w1s, ac0 + np * 16, hf * NH * 8 + ks * 16);
+            mma(acc[2 * np], a, bw[0], bw[1]);
+            mma(acc[2 * np + 1], a, bw[2], bw[3]);
+          }
+        }
+      }
+      flush_dp(ch, s0, s1);
+      if constexpr (kScratch) {
+        __syncthreads();  // sDB is whole
+        store_db1(ch);
       }
     }
+  } else {
+    // One buffer each: the next W2 slice lands while dz and dx are computed,
+    // the next W1 slice while g is.
+    if (ch < ch_end) {
+      stage_w2(ch, 0);
+      cp_async_commit();
+      stage_w1(ch, 0);
+      cp_async_commit();
+    }
+    for (; ch < ch_end; ++ch) {
+      const bool more = ch + 1 < ch_end;
+      cp_async_wait<1>();  // this chunk's W2 slice; its W1 slice may still be in flight
+      __syncthreads();
+      float gz[L::NZ][4];  // g = dout W2-slice^T
+      zero_tiles(gz);
+      mma_nk<CP / 16, L::NZ, CP, CP>(gz, sDO, row0, 0, sW2, zc0);
+      __syncthreads();  // every warp is done with sW2
+      if (more) stage_w2(ch + 1, 0);
+      cp_async_commit();   // (empty when there is no next chunk: keeps the count)
+      cp_async_wait<1>();  // this chunk's W1 slice
+      __syncthreads();
 
-    // dx += bf16(dz) W1 slice^T (W1 slice [C, FC] read column-major).
-    mma_tiles<wmma::row_major, wmma::col_major>(sH, L.ldh, sW1, L.ldw1, sAcc, L.ldacc, BT, C,
-                                                FC, true);
-    __syncthreads();
+      float z[L::NZ][4];
+      zero_tiles(z);
+      mma_kn<CP / 16, L::NZ, CP, FC>(z, sX, row0, 0, sW1, zc0);
+      uint32_t dzp[L::NZ][2];
+      float s0 = 0.f, s1 = 0.f;
+      dz_tiles(ch, zc0, gz, z, dzp, s0, s1);
+#pragma unroll
+      for (int n = 0; n < L::NZ; ++n) {
+        *reinterpret_cast<uint32_t*>(sDZ + (row0 + g) * pitch(FC) + zc0 + n * 8 + 2 * tq) = dzp[n][0];
+        *reinterpret_cast<uint32_t*>(sDZ + (row0 + g + 8) * pitch(FC) + zc0 + n * 8 + 2 * tq) =
+            dzp[n][1];
+      }
+      flush_dp(ch, s0, s1);
+      __syncthreads();  // the dz tile (and sDB) is whole
+      if constexpr (kScratch) store_db1(ch);
+
+#pragma unroll
+      for (int ks = 0; ks < FC / 16; ++ks) {  // dx += bf16(dz) W1-slice^T
+        uint32_t a[4];
+        load_a<FC>(a, sDZ, row0, ks * 16);
+#pragma unroll
+        for (int np = 0; np < L::NA / 2; ++np) {
+          uint32_t bw[4];
+          load_bt<FC>(bw, sW1, ac0 + np * 16, ks * 16);
+          mma(acc[2 * np], a, bw[0], bw[1]);
+          mma(acc[2 * np + 1], a, bw[2], bw[3]);
+        }
+      }
+      __syncthreads();  // every warp is done with sW1 and sDZ
+      if (more) {
+        stage_w1(ch + 1, 0);  // lands while the next g runs
+        cp_async_commit();
+      }
+    }
   }
 
-  // This split's partials of dx and dp.
-  float* dx_part = ws_dx + ((long long)split * T + t0) * C;
-  for (int i = tid; i < rows * C; i += NTHREADS) {
-    const int r = i / C, c = i % C;
-    dx_part[i] = sAcc[r * L.ldacc + c];
+  // dx: this split's partial, or the whole sum when the loop is not split.
+  float* dxs = dx + (long long)split * T * C;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = t0 + row0 + g + 8 * half;
+    if (t >= T) continue;
+#pragma unroll
+    for (int n = 0; n < L::NA; ++n) {
+      const int c = ac0 + n * 8 + 2 * tq;
+      if (c < C)
+        *reinterpret_cast<float2*>(dxs + (long long)t * C + c) =
+            make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
   }
-  float* dp_part = ws_dp + ((long long)split * T + t0) * E;
-  for (int i = tid; i < rows * E; i += NTHREADS) dp_part[i] = sDP[i];
-  if (split == 0) {
-    // This tile's sum of p * dout for db2.
-    for (int i = tid; i < E * C; i += NTHREADS) {
+  __syncthreads();  // the dp partials are whole
+  float* dps = dp + (long long)split * T * E;
+  for (int i = tid; i < L::BT * E; i += L::NT) {
+    const int r = i / E, e = i % E, t = t0 + r;
+    if (t >= T) continue;
+    float s = 0.f;
+    for (int c = 0; c < L::CW; ++c) s += sDP[(c * L::BT + r) * PE + e];
+    if (split == 0) {  // dout . b2_e, once a token
+      for (int c = 0; c < C; ++c)
+        s = fmaf(__bfloat162float(sDO[r * pitch(CP) + c]), b2[(long long)e * C + c], s);
+    }
+    dps[(long long)t * E + e] = s;
+  }
+  if (kScratch && split == 0) {  // this tile's sum of p * dout, for db2
+    const int rows = min(L::BT, T - t0);
+    for (int i = tid; i < E * C; i += L::NT) {
       const int e = i / C, c = i % C;
       float s = 0.f;
-      for (int r = 0; r < rows; ++r) s = fmaf(sP[r * E + e], __bfloat162float(sDO[r * L.ldx + c]), s);
+      for (int r = 0; r < rows; ++r)
+        s = fmaf(sP[r * PE + e], __bfloat162float(sDO[r * pitch(CP) + c]), s);
       part_db2[(long long)tile * E * C + i] = s;
     }
   }
 }
 
-// dx = sum of the split partials; dp = sum of the split partials + dout . b2;
-// db1 and db2 = sums of the tile partials. Each output element is one
-// thread's sum in a fixed order.
-__global__ void moe_bwd_finish_kernel(const float* __restrict__ ws_dx,
-                                      const float* __restrict__ ws_dp,
-                                      const float* __restrict__ part_db1,
-                                      const float* __restrict__ part_db2,
-                                      const bf16* __restrict__ dout, const float* __restrict__ b2,
-                                      float* __restrict__ dx, float* __restrict__ dp,
-                                      float* __restrict__ db1, float* __restrict__ db2, int T,
-                                      int C, int E, int F, int splits, int ntiles) {
-  const long long n_dx = (long long)T * C, n_dp = (long long)T * E;
-  const long long n_db1 = (long long)E * F, n_db2 = (long long)E * C;
-  const long long total = n_dx + n_dp + n_db1 + n_db2;
+// The recompute route's weight-gradient block (CP <= 64): FW = 64 hidden
+// units of one expert (4 m-tiles of 16), 8 warps, tokens in tiles of 32.
+// The two warps of an m-tile split each tile's tokens: each recomputes z^T
+// and g^T for its 16 tokens over the whole K = C, keeps dz and p*h in
+// registers as its A fragments, and sums all C columns over its tokens (CP
+// registers a thread); the two warps' sums are added in order at the end.
+struct WTile {
+  static constexpr int FW = 64, MF = FW / 16, NW = 8, NT = 32 * NW, KS = NW / MF;
+  static constexpr int BTK = 16 * KS;
+};
+
+// W1 slice [CP][FW], W2 slice [FW][CP], two stages of x and dout [BTK][CP]
+// (bf16); two stages of p_e [BTK] and the db1 sums [NT] (fp32). The
+// cross-warp sums [FW][CP] fp32 reuse the x and dout stages after the last
+// tile.
+template <int CP>
+constexpr int wgrad_smem_bytes() {
+  using W = WTile;
+  return 2 * (CP * pitch(W::FW) + W::FW * pitch(CP) + 4 * W::BTK * pitch(CP)) +
+         4 * (2 * W::BTK + W::NT);
+}
+
+// Block (expert e, chunk of FW hidden units, T range s of `tchunk` tokens).
+// Outputs (partials when gridDim.y > 1, indexed by s): dw1t, dw2 [E][F][C]
+// (dW1 transposed), db1 [E][F] and, from the blocks of each expert's first
+// chunk, db2 [E][C]. probs [T, E] is the routing.
+template <int CP>
+__global__ void __launch_bounds__(WTile::NT)
+moe_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
+                 const float* __restrict__ probs, const bf16* __restrict__ w1,
+                 const float* __restrict__ b1, const bf16* __restrict__ w2,
+                 float* __restrict__ dw1t, float* __restrict__ dw2, float* __restrict__ db1,
+                 float* __restrict__ db2, int T, int C, int E, int F, int tchunk) {
+  using W = WTile;
+  constexpr int BTK = W::BTK, FW = W::FW, NT = W::NT;
+  static_assert(CP <= 64, "the recompute route keeps [16, CP] sums of two products a warp");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sW1t = reinterpret_cast<bf16*>(smem);  // [CP][FW + 8]
+  bf16* sW2 = sW1t + CP * pitch(FW);           // [FW][CP + 8]
+  bf16* sX = sW2 + FW * pitch(CP);             // [2][BTK][CP + 8]
+  bf16* sDO = sX + 2 * BTK * pitch(CP);        // [2][BTK][CP + 8]
+  float* sPE = reinterpret_cast<float*>(sDO + 2 * BTK * pitch(CP));  // [2][BTK]
+  float* sRed = sPE + 2 * BTK;                 // [NT], the db1 sums
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, tq = lane & 3;
+  const int mw = warp / W::KS, kw = warp % W::KS;
+  const int nfw = (F + FW - 1) / FW;
+  const int e = blockIdx.x / nfw, f0 = (blockIdx.x % nfw) * FW, s = blockIdx.y;
+  const bool with_db2 = blockIdx.x % nfw == 0;
+  const int tb = s * tchunk, te = min(T, tb + tchunk);
+  const int ntile = te > tb ? (te - tb + BTK - 1) / BTK : 0;
+
+  stage_tile<CP, FW, NT>(sW1t, w1 + (long long)e * C * F, F, 0, C, f0, F);
+  stage_tile<FW, CP, NT>(sW2, w2 + (long long)e * F * C, C, f0, F, 0, C);
+  auto issue = [&](int j) {  // token tile j into stage j % 2, one commit group
+    const int st = j & 1, t = tb + j * BTK;
+    stage_tile<BTK, CP, NT>(sX + st * BTK * pitch(CP), x, C, t, te, 0, C);
+    stage_tile<BTK, CP, NT>(sDO + st * BTK * pitch(CP), dout, C, t, te, 0, C);
+    if (tid < BTK) {
+      const bool ok = t + tid < te;
+      cp_async4(sPE + st * BTK + tid, ok ? probs + (long long)(t + tid) * E + e : probs, ok);
+    }
+    cp_async_commit();
+  };
+  if (ntile > 0) issue(0);  // with the weight slices
+  else cp_async_commit();
+
+  // Rows fr and fr + 8 of the warp's m-tile; its 16 tokens tw.. of each tile.
+  const int fr = f0 + mw * 16 + g, tw = kw * 16;
+  const float b1r[2] = {fr < F ? b1[(long long)e * F + fr] : 0.f,
+                        fr + 8 < F ? b1[(long long)e * F + fr + 8] : 0.f};
+  float db1r[2] = {0.f, 0.f};
+  float db2r = 0.f;  // column tid of db2, with_db2
+  float a1[CP / 8][4], a2[CP / 8][4];  // dW1^T and dW2 [16, CP] of the warp
+  zero_tiles(a1);
+  zero_tiles(a2);
+  for (int j = 0; j < ntile; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    if (j + 1 < ntile) issue(j + 1);
+    const bf16* xs = sX + (j & 1) * BTK * pitch(CP);
+    const bf16* ds = sDO + (j & 1) * BTK * pitch(CP);
+    const float* pes = sPE + (j & 1) * BTK;
+
+    if (with_db2 && tid < C) {  // db2_e = sum_t p_e dout over the range, once an expert
+      for (int t = 0; t < BTK; ++t)
+        db2r = fmaf(pes[t], __bfloat162float(ds[t * pitch(CP) + tid]), db2r);
+    }
+
+    // z^T and g^T of the warp's 16 hidden units and 16 tokens, K = C.
+    float zq[2][4], gq[2][4];
+    zero_tiles(zq);
+    zero_tiles(gq);
+#pragma unroll
+    for (int kk = 0; kk < CP / 16; ++kk) {
+      uint32_t aw[4], b[4];
+      load_at<FW>(aw, sW1t, mw * 16, kk * 16);
+      load_bt<CP>(b, xs, tw, kk * 16);
+      mma(zq[0], aw, b[0], b[1]);
+      mma(zq[1], aw, b[2], b[3]);
+      load_a<CP>(aw, sW2, mw * 16, kk * 16);
+      load_bt<CP>(b, ds, tw, kk * 16);
+      mma(gq[0], aw, b[0], b[1]);
+      mma(gq[1], aw, b[2], b[3]);
+    }
+    // dz and p_e h in registers, packed bf16 as the A fragments of the sums.
+    uint32_t dzq[2][2], phq[2][2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float d[4], q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float zz = zq[n][i] + b1r[i >> 1];
+        const float pe = pes[tw + n * 8 + 2 * tq + (i & 1)];
+        float ez;
+        const float cdf = gelu_cdf(zz, ez);
+        d[i] = gq[n][i] * pe * fmaf(zz * INV_SQRT_2PI, ez, cdf);
+        q[i] = round_bf16(zz * cdf) * pe;
+        db1r[i >> 1] += d[i];
+      }
+      dzq[n][0] = pack_bf16(d[0], d[1]);
+      dzq[n][1] = pack_bf16(d[2], d[3]);
+      phq[n][0] = pack_bf16(q[0], q[1]);
+      phq[n][1] = pack_bf16(q[2], q[3]);
+    }
+    uint32_t adz[4], aph[4];
+    packed_a(adz, dzq, 0);
+    packed_a(aph, phq, 0);
+    // dW1^T += bf16(dz)^T x, dW2 += bf16(p h)^T dout over the warp's tokens.
+#pragma unroll
+    for (int np = 0; np < CP / 16; ++np) {
+      uint32_t b[4];
+      load_b<CP>(b, xs, tw, np * 16);
+      mma(a1[2 * np], adz, b[0], b[1]);
+      mma(a1[2 * np + 1], adz, b[2], b[3]);
+      load_b<CP>(b, ds, tw, np * 16);
+      mma(a2[2 * np], aph, b[0], b[1]);
+      mma(a2[2 * np + 1], aph, b[2], b[3]);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every warp is done with the last tile
+
+  // The token groups' sums meet in [FW][CP] fp32 over the token stages, added
+  // in warp order; warp kw == 0 of each m-tile writes them.
+  float* sAcc = reinterpret_cast<float*>(sX);
+  static_assert(FW * CP * 4 <= 4 * BTK * pitch(CP) * 2, "cross-warp sums exceed the stages");
+  auto add_across = [&](float (&acc)[CP / 8][4]) {
+    for (int k = 1; k < W::KS; ++k) {
+      if (kw == k) {
+#pragma unroll
+        for (int n = 0; n < CP / 8; ++n)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            *reinterpret_cast<float2*>(sAcc + (mw * 16 + g + 8 * half) * CP + n * 8 + 2 * tq) =
+                make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+      }
+      __syncthreads();
+      if (kw == 0) {
+#pragma unroll
+        for (int n = 0; n < CP / 8; ++n)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                sAcc + (mw * 16 + g + 8 * half) * CP + n * 8 + 2 * tq);
+            acc[n][2 * half] += v.x;
+            acc[n][2 * half + 1] += v.y;
+          }
+      }
+      __syncthreads();
+    }
+  };
+  add_across(a1);
+  add_across(a2);
+  const long long efc = (long long)E * F * C;
+  if (kw == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int f = fr + 8 * half;
+      if (f >= F) continue;
+#pragma unroll
+      for (int n = 0; n < CP / 8; ++n) {
+        const int c = n * 8 + 2 * tq;
+        if (c >= C) continue;
+        const long long at = s * efc + ((long long)e * F + f) * C + c;
+        *reinterpret_cast<float2*>(dw1t + at) = make_float2(a1[n][2 * half], a1[n][2 * half + 1]);
+        *reinterpret_cast<float2*>(dw2 + at) = make_float2(a2[n][2 * half], a2[n][2 * half + 1]);
+      }
+    }
+  }
+
+  // db1: each warp's quad sums, added over the token groups in order.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    db1r[half] += __shfl_xor_sync(0xffffffffu, db1r[half], 1);
+    db1r[half] += __shfl_xor_sync(0xffffffffu, db1r[half], 2);
+  }
+  if (tq == 0) {  // hidden units mw * 16 + g (+ 8), token group kw
+    sRed[kw * FW + mw * 16 + g] = db1r[0];
+    sRed[kw * FW + mw * 16 + g + 8] = db1r[1];
+  }
+  __syncthreads();
+  if (tid < FW && f0 + tid < F) {
+    float sum = 0.f;
+    for (int k = 0; k < W::KS; ++k) sum += sRed[k * FW + tid];
+    db1[(long long)s * E * F + (long long)e * F + f0 + tid] = sum;
+  }
+  if (with_db2 && tid < C) db2[(long long)s * E * C + (long long)e * C + tid] = db2r;
+}
+
+// The scratch route's weight gradients (CP >= 128): dW1^T = bf16(dz)^T x and
+// dW2 = bf16(p h)^T dout over a T range, from A [T, M = E*F] (the token
+// kernel's scratch) and B [T, N = C], both bf16. Block (m-tile, n-tile; T
+// range, product) keeps a [GBM, GBN] fp32 tile in registers (8 warps of
+// 32 x 64, 64 a thread) while it walks its tokens GBK at a time, A and B
+// double-buffered by cp.async; A^T's fragments come by ldmatrix.trans.
+constexpr int GBM = 128, GBN = 128, GBK = 32;
+
+__global__ void __launch_bounds__(256)
+moe_wgrad_gemm_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ ph,
+                      const bf16* __restrict__ x, const bf16* __restrict__ dout,
+                      float* __restrict__ dw1t, float* __restrict__ dw2, int T, int M, int N,
+                      int tchunk) {
+  __shared__ __align__(128) bf16 sA[2][GBK * pitch(GBM)];
+  __shared__ __align__(128) bf16 sB[2][GBK * pitch(GBN)];
+  const int which = blockIdx.y & 1, s = blockIdx.y >> 1;
+  const bf16* A = which ? ph : dz;
+  const bf16* B = which ? dout : x;
+  float* out = (which ? dw2 : dw1t) + (long long)s * M * N;
+  const int ntn = (N + GBN - 1) / GBN;
+  const int m0 = (blockIdx.x / ntn) * GBM, n0 = (blockIdx.x % ntn) * GBN;
+  const int tb = s * tchunk, te = min(T, tb + tchunk);
+  const int ntile = te > tb ? (te - tb + GBK - 1) / GBK : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
+  const int wm = (warp % 4) * 32, wn = (warp / 4) * 64;
+
+  auto issue = [&](int j) {
+    stage_tile<GBK, GBM, 256>(sA[j & 1], A, M, tb + j * GBK, te, m0, M);
+    stage_tile<GBK, GBN, 256>(sB[j & 1], B, N, tb + j * GBK, te, n0, N);
+    cp_async_commit();
+  };
+  float acc[2][8][4];
+  zero_tiles(acc[0]);
+  zero_tiles(acc[1]);
+  if (ntile > 0) issue(0);
+  for (int j = 0; j < ntile; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    if (j + 1 < ntile) issue(j + 1);
+#pragma unroll
+    for (int ks = 0; ks < GBK / 16; ++ks) {
+      uint32_t a[2][4];
+      load_at<GBM>(a[0], sA[j & 1], wm, ks * 16);
+      load_at<GBM>(a[1], sA[j & 1], wm + 16, ks * 16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        load_b<GBN>(b, sB[j & 1], ks * 16, wn + np * 16);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma(acc[mi][2 * np], a[mi], b[0], b[1]);
+          mma(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mi * 16 + g + 8 * half;
+      if (m >= M) continue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = n0 + wn + n * 8 + 2 * tq;
+        if (c < N)
+          *reinterpret_cast<float2*>(out + (long long)m * N + c) =
+              make_float2(acc[mi][n][2 * half], acc[mi][n][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// dst[i] = sum_k src[k * n + i] for k < count, in order, for up to seven
+// (src, dst, n, count) jobs in one launch.
+struct SumJob {
+  const float* src;
+  float* dst;
+  long long n;
+  int count;
+};
+struct SumJobs {
+  SumJob job[7];
+  int njobs;
+};
+
+__global__ void moe_sum_kernel(SumJobs jobs) {
+  long long total = 0;
+  for (int j = 0; j < jobs.njobs; ++j) total += jobs.job[j].n;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
-    if (i < n_dx) {
-      float s = 0.f;
-      for (int k = 0; k < splits; ++k) s += ws_dx[k * n_dx + i];
-      dx[i] = s;
-    } else if (i < n_dx + n_dp) {
-      const long long j = i - n_dx;
-      const long long t = j / E;
-      const int e = static_cast<int>(j % E);
-      float s = 0.f;
-      for (int k = 0; k < splits; ++k) s += ws_dp[k * n_dp + j];
-      float bias = 0.f;
-      for (int c = 0; c < C; ++c)
-        bias = fmaf(__bfloat162float(dout[t * C + c]), b2[(long long)e * C + c], bias);
-      dp[j] = s + bias;
-    } else if (i < n_dx + n_dp + n_db1) {
-      const long long j = i - n_dx - n_dp;
-      float s = 0.f;
-      for (int k = 0; k < ntiles; ++k) s += part_db1[k * n_db1 + j];
-      db1[j] = s;
-    } else {
-      const long long j = i - n_dx - n_dp - n_db1;
-      float s = 0.f;
-      for (int k = 0; k < ntiles; ++k) s += part_db2[k * n_db2 + j];
-      db2[j] = s;
-    }
-  }
-}
-
-// out[s][M, N] = A[t-range s]^T B[t-range s] for bf16 row-major A [T, M] and
-// B [T, N] with row strides lda >= M and ldb >= N (a column slice of a wider
-// matrix): block (n-tile, m-tile, s) owns a 64x64 output tile and the s-th
-// range of `tchunk` tokens. Each of the 8 warps keeps two 16x16 fp32
-// accumulators in registers. M and N must be multiples of 16; tiles
-// overhanging M or N are zero-filled and not stored.
-__global__ void __launch_bounds__(NTHREADS)
-moe_wgrad_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ out,
-                 int T, int M, int N, int lda, int ldb, int tchunk) {
-  constexpr int LDS = WT + 8;
-  __shared__ __align__(128) bf16 sA[WKT * LDS];
-  __shared__ __align__(128) bf16 sB[WKT * LDS];
-  const int n0 = blockIdx.x * WT, m0 = blockIdx.y * WT, s = blockIdx.z;
-  const int tb = s * tchunk, te = min(T, tb + tchunk);
-  const int warp = threadIdx.x / 32;
-  // Warp w owns output tiles (mi, ni) = (w / 2, 2 * (w % 2) + {0, 1}).
-  const int mi = warp / 2, ni0 = 2 * (warp % 2);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  for (int t = tb; t < te; t += WKT) {
-    for (int i = threadIdx.x; i < 2 * WKT * (WT / 8); i += NTHREADS) {
-      const bool is_b = i >= WKT * (WT / 8);
-      const int k = is_b ? i - WKT * (WT / 8) : i;
-      const int r = k / (WT / 8), c = (k % (WT / 8)) * 8;
-      const int lim = is_b ? N : M;
-      const int col = (is_b ? n0 : m0) + c;
-      bf16* dst = (is_b ? sB : sA) + r * LDS + c;
-      if (t + r < te && col < lim) {
-        cp_async16(dst, (is_b ? B : A) + (long long)(t + r) * (is_b ? ldb : lda) + col);
-      } else {
-        zero16(dst);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    for (int kk = 0; kk < WKT / 16; ++kk) {
-      // A^T tile: element (m, t) at sA[t * LDS + m], column-major.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::load_matrix_sync(fa, sA + kk * 16 * LDS + mi * 16, LDS);
-      for (int q = 0; q < 2; ++q) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sB + kk * 16 * LDS + (ni0 + q) * 16, LDS);
-        wmma::mma_sync(acc[q], fa, fb, acc[q]);
-      }
-    }
-    __syncthreads();
-  }
-  const int m = m0 + mi * 16;
-  for (int q = 0; q < 2; ++q) {
-    const int n = n0 + (ni0 + q) * 16;
-    if (m < M && n < N)
-      wmma::store_matrix_sync(out + ((long long)s * M + m) * N + n, acc[q], N,
-                              wmma::mem_row_major);
-  }
-}
-
-// out[i] = sum_k ws[k][i] for k < splits, in order.
-__global__ void moe_sum_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                               long long n, int splits) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
+    long long k = i;
+    int j = 0;
+    while (k >= jobs.job[j].n) k -= jobs.job[j++].n;
+    const SumJob& job = jobs.job[j];
     float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += ws[k * n + i];
-    out[i] = s;
+    for (int c = 0; c < job.count; ++c) s += job.src[c * job.n + k];
+    job.dst[k] = s;
   }
 }
 
-int grid_for(long long n) {
-  const long long b = (n + 255) / 256;
-  return static_cast<int>(b < 65535 ? (b > 0 ? b : 1) : 65535);
-}
+// The three launches at padded width CP. plan = (token tile, splits, T
+// ranges, tokens a range); the token tile sizes the scratch route's db1 and
+// db2 partials, so it must be this file's.
+template <int CP>
+int launch_bwd(const void* x, const void* probs, const void* w1, const void* b1, const void* w2,
+               const void* b2, const void* dout, void* dz, void* ph, void* ws_dx, void* ws_dp,
+               void* ws_w1, void* ws_w2, void* ws_db1, void* ws_db2, void* dx, void* dp,
+               void* dw1t, void* db1, void* dw2, void* db2, int T, int C, int E, int F,
+               const int* plan, cudaStream_t st) {
+  using L = Tile<CP>;
+  constexpr bool kScratch = scratch_route<CP>();
+  constexpr int tsmem = token_smem_bytes<CP>();
+  static_assert(tsmem <= MAX_SMEM, "token-kernel tiles exceed a block's shared memory");
+  const int splits = plan[1], tsplits = plan[2], tchunk = plan[3];
+  const int nfc = (F + FC - 1) / FC, ntiles = (T + L::BT - 1) / L::BT;
+  const int wtile = kScratch ? GBK : WTile::BTK;
+  // the token tiles' db1 / db2 partials (scratch route) or the T ranges' (recompute)
+  const int nbias = kScratch ? ntiles : tsplits;
+  if (plan[0] != L::BT || splits < 1 || splits > 65535 || splits > E * nfc || tsplits < 1 ||
+      2 * tsplits > 65535 || tchunk < 1 || tchunk % wtile != 0 ||
+      (long long)tsplits * tchunk < T || (long long)(tsplits - 1) * tchunk >= T ||
+      (splits > 1 && (ws_dx == nullptr || ws_dp == nullptr)) ||
+      (tsplits > 1 && (ws_w1 == nullptr || ws_w2 == nullptr)) ||
+      (nbias > 1 && (ws_db1 == nullptr || ws_db2 == nullptr)) ||
+      (kScratch && (dz == nullptr || ph == nullptr || ws_db1 == nullptr || ws_db2 == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned token_attr = 0;
+  cudaError_t err = set_smem_once(moe_bwd_token_kernel<CP>, tsmem, token_attr);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
-// Largest token tile, then widest F-chunk, whose shared memory fits.
-bool pick_tiles(int C, int F, int E, int* bt, int* fc) {
-  const int bts[] = {64, 32, 16};
-  const int fcs[] = {64, 32, 16};
-  for (int b : bts) {
-    for (int f : fcs) {
-      if (F % f != 0) continue;
-      if (Layout(b, f, C, E).total <= SMEM_LIMIT) {
-        *bt = b;
-        *fc = f;
-        return true;
-      }
-    }
+  float* dx_dst = static_cast<float*>(splits > 1 ? ws_dx : dx);
+  float* dp_dst = static_cast<float*>(splits > 1 ? ws_dp : dp);
+  moe_bwd_token_kernel<CP><<<dim3(ntiles, splits), L::NT, tsmem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(probs), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+      static_cast<const bf16*>(dout), dx_dst, dp_dst, static_cast<bf16*>(dz),
+      static_cast<bf16*>(ph), static_cast<float*>(ws_db1), static_cast<float*>(ws_db2), T, C, E,
+      F);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  float* w1_dst = static_cast<float*>(tsplits > 1 ? ws_w1 : dw1t);
+  float* w2_dst = static_cast<float*>(tsplits > 1 ? ws_w2 : dw2);
+  if constexpr (kScratch) {
+    const int M = E * F;
+    const int blocks = ((M + GBM - 1) / GBM) * ((C + GBN - 1) / GBN);
+    moe_wgrad_gemm_kernel<<<dim3(blocks, 2 * tsplits), 256, 0, st>>>(
+        static_cast<const bf16*>(dz), static_cast<const bf16*>(ph), static_cast<const bf16*>(x),
+        static_cast<const bf16*>(dout), w1_dst, w2_dst, T, M, C, tchunk);
+  } else {
+    constexpr int wsmem = wgrad_smem_bytes<CP>();
+    static_assert(wsmem <= MAX_SMEM, "weight-gradient tiles exceed a block's shared memory");
+    static unsigned wgrad_attr = 0;
+    if ((err = set_smem_once(moe_wgrad_kernel<CP>, wsmem, wgrad_attr)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int nfw = (F + WTile::FW - 1) / WTile::FW;
+    moe_wgrad_kernel<CP><<<dim3(E * nfw, tsplits), WTile::NT, wsmem, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(dout),
+        static_cast<const float*>(probs), static_cast<const bf16*>(w1),
+        static_cast<const float*>(b1), static_cast<const bf16*>(w2), w1_dst, w2_dst,
+        static_cast<float*>(tsplits > 1 ? ws_db1 : db1),
+        static_cast<float*>(tsplits > 1 ? ws_db2 : db2), T, C, E, F, tchunk);
   }
-  return false;
-}
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-// Splits of the T reduction for an [M, N] weight gradient: enough blocks for
-// about two per SM, each with at least 512 tokens.
-int wgrad_splits(int T, int M, int N, int sms) {
-  const int tiles = ((M + WT - 1) / WT) * ((N + WT - 1) / WT);
-  int s = (2 * sms + tiles - 1) / tiles;
-  const int most = (T + 511) / 512;
-  if (s > most) s = most;
-  if (s > 65535) s = 65535;
-  return s < 1 ? 1 : s;
-}
-
-int wgrad_chunk(int T, int splits) {
-  const int c = (T + splits - 1) / splits;
-  return (c + WKT - 1) / WKT * WKT;
+  SumJobs jobs{};
+  auto add = [&](void* src, void* dst, long long n, int count) {
+    jobs.job[jobs.njobs++] = SumJob{static_cast<const float*>(src), static_cast<float*>(dst), n, count};
+  };
+  const long long efc = (long long)E * F * C;
+  if (splits > 1) {
+    add(ws_dx, dx, (long long)T * C, splits);
+    add(ws_dp, dp, (long long)T * E, splits);
+  }
+  if (tsplits > 1) {
+    add(ws_w1, dw1t, efc, tsplits);
+    add(ws_w2, dw2, efc, tsplits);
+  }
+  if (kScratch || tsplits > 1) {
+    add(ws_db1, db1, (long long)E * F, nbias);
+    add(ws_db2, db2, (long long)E * C, nbias);
+  }
+  if (jobs.njobs == 0) return 0;
+  long long total = 0;
+  for (int j = 0; j < jobs.njobs; ++j) total += jobs.job[j].n;
+  const int blocks = static_cast<int>(std::min<long long>((total + 255) / 256, 4096));
+  moe_sum_kernel<<<blocks, 256, 0, st>>>(jobs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -515,501 +779,42 @@ const char* moegan_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The plan at (T, C, F, E) on a card with `sms` SMs: plan[0..4] = token tile,
-// F-chunk, splits of the (expert, F-chunk) loop, and the T splits of the dW1
-// and dW2 reductions. Returns 0 if no tile fits shared memory.
-int moegan_fused_moe_bwd_plan(int T, int C, int F, int E, int sms, int* plan) {
-  int bt = 0, fc = 0;
-  if (!pick_tiles(C, F, E, &bt, &fc)) return 0;
-  const int ntiles = (T + bt - 1) / bt;
-  const int nch = E * (F / fc);
-  const int s = (sms + ntiles - 1) / ntiles;
-  plan[0] = bt;
-  plan[1] = fc;
-  plan[2] = s < 1 ? 1 : (s > nch ? nch : s);
-  plan[3] = wgrad_splits(T, C, E * F, sms);
-  plan[4] = wgrad_splits(T, E * F, C, sms);
-  return 1;
-}
-
-}  // extern "C"
-
-namespace {
-
-// The launches of both entry points below: the token kernel (routing from
-// the router inputs when kRouter, else from probs_in), the finish pass and
-// the two weight-gradient products.
-template <bool kRouter>
-int launch_bwd(const void* x, const void* fw, const void* cw, const void* tl,
-               const void* inv_temp, const void* probs_in, const void* w1, const void* b1,
-               const void* w2, const void* b2, const void* dout, void* dz, void* ph,
-               void* ws_dx, void* ws_dp, void* part_db1, void* part_db2, void* ws_w1,
-               void* ws_w2, void* dx, void* dp, void* dw1s, void* db1, void* dw2s, void* db2,
-               int T, int C, int Hd, int E, int F, const int* plan, void* stream) {
-  int bt = 0, fc = 0;
-  if (!pick_tiles(C, F, E, &bt, &fc) || bt != plan[0] || fc != plan[1] || plan[2] < 1 ||
-      plan[2] > 65535 || (plan[3] > 1 && ws_w1 == nullptr) || (plan[4] > 1 && ws_w2 == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int splits = plan[2];
-  const int ntiles = (T + bt - 1) / bt;
-  const int EF = E * F;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Layout L(bt, fc, C, E);
-  cudaError_t err = cudaFuncSetAttribute(moe_bwd_token_kernel<kRouter>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  moe_bwd_token_kernel<kRouter><<<dim3(ntiles, splits), NTHREADS, L.total, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(fw), static_cast<const float*>(cw),
-      static_cast<const float*>(tl), static_cast<const float*>(inv_temp),
-      static_cast<const float*>(probs_in), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dz), static_cast<bf16*>(ph),
-      static_cast<float*>(ws_dx), static_cast<float*>(ws_dp), static_cast<float*>(part_db1),
-      static_cast<float*>(part_db2), T, C, Hd, E, F, bt, fc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  const long long n_fin = (long long)T * C + (long long)T * E + (long long)EF + (long long)E * C;
-  moe_bwd_finish_kernel<<<grid_for(n_fin), 256, 0, st>>>(
-      static_cast<const float*>(ws_dx), static_cast<const float*>(ws_dp),
-      static_cast<const float*>(part_db1), static_cast<const float*>(part_db2),
-      static_cast<const bf16*>(dout), static_cast<const float*>(b2), static_cast<float*>(dx),
-      static_cast<float*>(dp), static_cast<float*>(db1), static_cast<float*>(db2), T, C, E, F,
-      splits, ntiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  // dW1s [C, E*F] = x^T dz and dW2s [E*F, C] = (p h)^T dout.
-  const void* as[2] = {x, ph};
-  const void* bs[2] = {dz, dout};
-  void* wss[2] = {ws_w1, ws_w2};
-  void* outs[2] = {dw1s, dw2s};
-  const int ms[2] = {C, EF}, ns[2] = {EF, C};
-  for (int g = 0; g < 2; ++g) {
-    const int ws = plan[3 + g];
-    float* dst = static_cast<float*>(ws > 1 ? wss[g] : outs[g]);
-    const dim3 grid((ns[g] + WT - 1) / WT, (ms[g] + WT - 1) / WT, ws);
-    moe_wgrad_kernel<<<grid, NTHREADS, 0, st>>>(static_cast<const bf16*>(as[g]),
-                                                static_cast<const bf16*>(bs[g]), dst, T, ms[g],
-                                                ns[g], ms[g], ns[g], wgrad_chunk(T, ws));
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    if (ws > 1) {
-      const long long n = (long long)ms[g] * ns[g];
-      moe_sum_kernel<<<grid_for(n), 256, 0, st>>>(dst, static_cast<float*>(outs[g]), n, ws);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    }
-  }
-  return 0;
-}
-
-}  // namespace
-
-extern "C" {
-
-// Buffers (the wrapper allocates them from the plan):
-//   dz, ph: bf16 [T, E*F] scratch; ws_dx fp32 [splits, T, C]; ws_dp fp32
-//   [splits, T, E]; part_db1 fp32 [ntiles, E*F]; part_db2 fp32 [ntiles, E*C];
-//   ws_w1 fp32 [plan[3], C, E*F] and ws_w2 fp32 [plan[4], E*F, C] (may be
-//   null when that count is 1: the sum goes straight to dw1s / dw2s).
-// Outputs, all fp32: dx [T, C], dp [T, E], dw1s [C, E*F], db1 [E*F],
-//   dw2s [E*F, C], db2 [E*C].
-// Returns the cudaError_t of the launches (cudaErrorInvalidValue if the
-// arguments do not match the plan).
-int moegan_fused_moe_bwd(const void* x, const void* fw, const void* cw, const void* tl,
-                         const void* inv_temp, const void* w1, const void* b1, const void* w2,
-                         const void* b2, const void* dout, void* dz, void* ph, void* ws_dx,
-                         void* ws_dp, void* part_db1, void* part_db2, void* ws_w1, void* ws_w2,
-                         void* dx, void* dp, void* dw1s, void* db1, void* dw2s, void* db2, int T,
-                         int C, int Hd, int E, int F, const int* plan, void* stream) {
-  return launch_bwd<true>(x, fw, cw, tl, inv_temp, nullptr, w1, b1, w2, b2, dout, dz, ph, ws_dx,
-                          ws_dp, part_db1, part_db2, ws_w1, ws_w2, dx, dp, dw1s, db1, dw2s, db2,
-                          T, C, Hd, E, F, plan, stream);
-}
-
-// The backward of the expert-parallel combine (replaces _combine_bwd_kernel
-// and _combine_bwd_kernel_v2): the same gradient with the routing probs
-// [T, E] fp32 given instead of recomputed. dp is then the whole gradient of
-// probs and dx the whole gradient of x (there is no router chain). Buffers,
-// plan (moegan_fused_moe_bwd_plan) and return code as moegan_fused_moe_bwd.
+// The backward of the fused MoE (given the forward's routing) and of the
+// expert-parallel combine (replaces _combine_bwd_kernel and
+// _combine_bwd_kernel_v2): the gradient with the routing probs [T, E] fp32
+// read. dp is the whole gradient of probs (and, for the combine, dx the
+// whole gradient of x). plan: 4 ints from ops/fused_moe.py::moe_bwd_plan.
+// Buffers (the wrapper allocates them from the plan; those a plan does not
+// use may be null): on the scratch route (C > 64) dz and ph bf16 [T, E*F],
+// ws_db1 fp32 [ntiles, E, F] and ws_db2 [ntiles, E, C]; on the recompute
+// route ws_db1 and ws_db2 [tsplits, E, F] / [tsplits, E, C] when tsplits >
+// 1; ws_dx fp32 [splits, T, C] and ws_dp [splits, T, E] when splits > 1;
+// ws_w1, ws_w2 fp32 [tsplits, E, F, C] when tsplits > 1. Outputs, all fp32:
+// dx [T, C], dp [T, E], dw1t [E, F, C] (dW1 transposed), db1 [E, F], dw2
+// [E, F, C], db2 [E, C]. Returns the cudaError_t of the launches
+// (cudaErrorInvalidValue if the widths are not taken or the plan does not
+// fit this file's tiles).
 int moegan_moe_combine_bwd(const void* x, const void* probs, const void* w1, const void* b1,
                            const void* w2, const void* b2, const void* dout, void* dz, void* ph,
-                           void* ws_dx, void* ws_dp, void* part_db1, void* part_db2, void* ws_w1,
-                           void* ws_w2, void* dx, void* dp, void* dw1s, void* db1, void* dw2s,
+                           void* ws_dx, void* ws_dp, void* ws_w1, void* ws_w2, void* ws_db1,
+                           void* ws_db2, void* dx, void* dp, void* dw1t, void* db1, void* dw2,
                            void* db2, int T, int C, int E, int F, const int* plan,
                            void* stream) {
-  return launch_bwd<false>(x, nullptr, nullptr, nullptr, nullptr, probs, w1, b1, w2, b2, dout,
-                           dz, ph, ws_dx, ws_dp, part_db1, part_db2, ws_w1, ws_w2, dx, dp, dw1s,
-                           db1, dw2s, db2, T, C, 0, E, F, plan, stream);
-}
-
-}  // extern "C"
-
-// --- The legacy three-kernel backward (MOEGAN_PALLAS_MOE_BWD=3) ----------------------------
-//
-// Replaces the TPU kernels ::_bwd_dx_kernel, ::_bwd_dw2_kernel and
-// ::_bwd_dw1_kernel (launched by _fused_moe_bwd_pallas). Each is an entry
-// point of its own, reading no other's scratch, and each recomputes for its
-// token tile the soft routing p, z = x W1_e + b1_e and h = bf16(gelu_erf(z)),
-// as the TPU kernels do. They round where the TPU kernels round:
-// dy_e = bf16(p_e dout) feeds dh = dy_e W2_e^T and dW2_e = h^T dy_e, and
-// dz = dh gelu'(z) is rounded to bf16 before dz W1_e^T and x^T dz; the bias
-// gradients are fp32 sums. (moegan_fused_moe_bwd rounds p h instead, so the
-// two backwards differ by bf16 rounding.)
-//
-//   moegan_moe_bwd_dx:  dx_ffn = sum_e bf16(dz_e) W1_e^T,
-//                       dp[t, e] = <dout_t, h_e W2_e + b2_e>
-//   moegan_moe_bwd_dw2: dW2_e = h_e^T dy_e,     db2_e = sum_t p_e dout
-//   moegan_moe_bwd_dw1: dW1_e = x^T bf16(dz_e), db1_e = sum_t dz_e
-//
-// One token kernel, instantiated per entry point (kMode), walks its tile's
-// share of the (expert, F-chunk) loop as moe_bwd_token_kernel does. For dx it
-// keeps a [BT, C] fp32 accumulator and writes per-split partials of dx and of
-// dp (computed as sum_f g h with g = dout W2^T, plus dout . b2 in split 0),
-// which moe_sum_kernel adds in order. For the weight gradients it writes
-// bf16 scratches (h [T, E*F] and dy [T, E*C] for dW2, dz [T, E*F] for dW1)
-// and per-tile fp32 column sums for the biases; moe_wgrad_kernel then forms
-// x^T dz stacked over the experts, and h_e^T dy_e once per expert (dy_e
-// differs per expert), and moe_sum_kernel adds the tile partials in order.
-// No atomics: two calls give the same bits.
-//
-// What bounds them: the products, 8 (dx: z, g, dh, dz W1^T), 4 (dw2: z,
-// h^T dy) and 6 (dw1: z, dh, x^T dz) x T*C*F*E FLOPs at the bf16 tensor-
-// core rate: 1.8x the fused backward's 10, by the TPU design. They share the
-// fused kernel's first-version limits (synchronous staging, WMMA through
-// shared memory).
-
-namespace {
-
-enum LegacyMode { kDx = 0, kDw2 = 1, kDw1 = 2 };
-
-// Shared-memory tiles of the legacy token kernel: those of Layout, plus dy
-// [BT, C] bf16 and dh [BT, FC] fp32; each mode allocates only what it uses.
-struct LegacyLayout {
-  int ldx, ldw1, ldw2, ldz, ldh, ldacc;
-  size_t x, dout, dy, w1, w2, z, g, dh, h, acc, p, dp, total;
-  __host__ __device__ LegacyLayout(int mode, int BT, int FC, int C, int E) {
-    const bool dx = mode == kDx, with_dh = mode != kDw2;
-    ldx = C + 8;
-    ldw1 = FC + 8;
-    ldw2 = C + 8;
-    ldz = FC + 4;
-    ldh = FC + 8;
-    ldacc = C + 4;
-    size_t off = 0;
-    x = off; off += align128(sizeof(bf16) * BT * ldx);
-    dout = off; off += align128(sizeof(bf16) * BT * ldx);
-    dy = off; if (with_dh) off += align128(sizeof(bf16) * BT * ldx);
-    w1 = off; off += align128(sizeof(bf16) * C * ldw1);
-    w2 = off; if (with_dh) off += align128(sizeof(bf16) * FC * ldw2);
-    z = off; off += align128(sizeof(float) * BT * ldz);
-    g = off; if (dx) off += align128(sizeof(float) * BT * ldz);
-    dh = off; if (with_dh) off += align128(sizeof(float) * BT * ldz);
-    h = off; if (dx) off += align128(sizeof(bf16) * BT * ldh);
-    acc = off; if (dx) off += align128(sizeof(float) * BT * ldacc);
-    p = off; off += align128(sizeof(float) * BT * E);
-    dp = off; if (dx) off += align128(sizeof(float) * BT * E);
-    total = off;
-  }
-};
-
-// Outputs by mode: kDx: ws_dx [splits, T, C] and ws_dp [splits, T, E] fp32
-// partials. kDw2: sc_f = h [T, E*F], sc_dy = dy [T, E*C] (bf16), part_bias =
-// [ntiles, E*C] column sums of p dout. kDw1: sc_f = dz [T, E*F] (bf16),
-// part_bias = [ntiles, E*F] column sums of dz. Pointers a mode does not use
-// may be null.
-template <int kMode>
-__global__ void __launch_bounds__(NTHREADS)
-moe_legacy_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
-                        const float* __restrict__ cw, const float* __restrict__ tl,
-                        const float* __restrict__ inv_temp, const bf16* __restrict__ w1,
-                        const float* __restrict__ b1, const bf16* __restrict__ w2,
-                        const float* __restrict__ b2, const bf16* __restrict__ dout,
-                        float* __restrict__ ws_dx, float* __restrict__ ws_dp,
-                        bf16* __restrict__ sc_f, bf16* __restrict__ sc_dy,
-                        float* __restrict__ part_bias, int T, int C, int Hd, int E, int F,
-                        int BT, int FC) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const LegacyLayout L(kMode, BT, FC, C, E);
-  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L.dout);
-  bf16* sDY = reinterpret_cast<bf16*>(smem + L.dy);
-  bf16* sW1 = reinterpret_cast<bf16*>(smem + L.w1);
-  bf16* sW2 = reinterpret_cast<bf16*>(smem + L.w2);
-  float* sZ = reinterpret_cast<float*>(smem + L.z);
-  float* sG = reinterpret_cast<float*>(smem + L.g);
-  float* sDH = reinterpret_cast<float*>(smem + L.dh);
-  bf16* sH = reinterpret_cast<bf16*>(smem + L.h);
-  float* sAcc = reinterpret_cast<float*>(smem + L.acc);
-  float* sP = reinterpret_cast<float*>(smem + L.p);
-  float* sDP = reinterpret_cast<float*>(smem + L.dp);
-
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
-  const int t0 = tile * BT;
-  const int rows = min(BT, T - t0);
-  const int EF = E * F;
-
-  stage_rows(sX, L.ldx, x + (long long)t0 * C, BT, rows, C);
-  stage_rows(sDO, L.ldx, dout + (long long)t0 * C, BT, rows, C);
-  for (int i = tid; i < BT * E; i += NTHREADS) {
-    sP[i] = 0.f;
-    if constexpr (kMode == kDx) sDP[i] = 0.f;
-  }
-  if constexpr (kMode == kDx) {
-    for (int i = tid; i < BT * L.ldacc; i += NTHREADS) sAcc[i] = 0.f;
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  router_tile(sX, L.ldx, fw, cw, tl, inv_temp, sW1, L.ldw1, sZ, L.ldz, sP, t0, rows, BT, C, Hd,
-              E, FC);
-
-  const int nfc = F / FC, nch = E * nfc;
-  const int ch_end = (int)((long long)(split + 1) * nch / splits);
-  int cur_e = -1;
-  for (int ch = (int)((long long)split * nch / splits); ch < ch_end; ++ch) {
-    const int e = ch / nfc, f0 = (ch % nfc) * FC;
-    if constexpr (kMode == kDw2) {
-      // One block per (tile, expert) meets f0 == 0: it writes that expert's
-      // dy rows and the tile's column sums of p_e dout.
-      if (f0 == 0) {
-        for (int i = tid; i < rows * C; i += NTHREADS) {
-          const int r = i / C, c = i % C;
-          sc_dy[(long long)(t0 + r) * E * C + e * C + c] =
-              __float2bfloat16(sP[r * E + e] * __bfloat162float(sDO[r * L.ldx + c]));
-        }
-        for (int c = tid; c < C; c += NTHREADS) {
-          float s = 0.f;
-          for (int r = 0; r < rows; ++r) s = fmaf(sP[r * E + e], __bfloat162float(sDO[r * L.ldx + c]), s);
-          part_bias[(long long)tile * E * C + e * C + c] = s;
-        }
-      }
-    } else {
-      if (e != cur_e) {  // dy_e = bf16(p_e dout) for this expert's chunks
-        for (int i = tid; i < BT * C; i += NTHREADS) {
-          const int r = i / C, c = i % C;
-          sDY[r * L.ldx + c] = __float2bfloat16(sP[r * E + e] * __bfloat162float(sDO[r * L.ldx + c]));
-        }
-        cur_e = e;
-      }
-      stage_rows(sW2, L.ldw2, w2 + ((long long)e * F + f0) * C, FC, FC, C);
-    }
-    stage_cols(sW1, L.ldw1, w1 + (long long)e * C * F, C, F, f0, FC, F);
-    cp_async_wait_all();
-    __syncthreads();
-
-    // z = x W1 slice; g = dout W2 slice^T; dh = dy W2 slice^T (W2 slice
-    // [FC, C] read column-major).
-    mma_tiles<wmma::row_major, wmma::row_major>(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C,
-                                                false);
-    if constexpr (kMode == kDx) {
-      mma_tiles<wmma::row_major, wmma::col_major>(sDO, L.ldx, sW2, L.ldw2, sG, L.ldz, BT, FC, C,
-                                                  false);
-    }
-    if constexpr (kMode != kDw2) {
-      mma_tiles<wmma::row_major, wmma::col_major>(sDY, L.ldx, sW2, L.ldw2, sDH, L.ldz, BT, FC,
-                                                  C, false);
-    }
-    __syncthreads();
-
-    for (int i = tid; i < BT * FC; i += NTHREADS) {
-      const int r = i / FC, j = i % FC;
-      const float z = sZ[r * L.ldz + j] + b1[(long long)e * F + f0 + j];
-      const float cdf = 0.5f * (1.f + erff(z * 0.70710678118654752f));
-      const long long at = (long long)(t0 + r) * EF + e * F + f0 + j;
-      if constexpr (kMode == kDw2) {
-        if (r < rows) sc_f[at] = __float2bfloat16(z * cdf);
-      } else {
-        const float dz =
-            sDH[r * L.ldz + j] * (cdf + z * 0.3989422804014327f * expf(-0.5f * z * z));
-        if constexpr (kMode == kDx) {
-          const float hv = __bfloat162float(__float2bfloat16(z * cdf));
-          sG[r * L.ldz + j] *= hv;
-          sH[r * L.ldh + j] = __float2bfloat16(dz);
-        } else {
-          sZ[r * L.ldz + j] = dz;
-          if (r < rows) sc_f[at] = __float2bfloat16(dz);
-        }
-      }
-    }
-    __syncthreads();
-
-    if constexpr (kMode == kDx) {
-      // Row sums of g*h into dp[:, e]; dx += bf16(dz) W1 slice^T.
-      for (int r = tid; r < BT; r += NTHREADS) {
-        float s = 0.f;
-        for (int j = 0; j < FC; ++j) s += sG[r * L.ldz + j];
-        sDP[r * E + e] += s;
-      }
-      mma_tiles<wmma::row_major, wmma::col_major>(sH, L.ldh, sW1, L.ldw1, sAcc, L.ldacc, BT, C,
-                                                  FC, true);
-    } else if constexpr (kMode == kDw1) {
-      for (int j = tid; j < FC; j += NTHREADS) {
-        float s = 0.f;
-        for (int r = 0; r < rows; ++r) s += sZ[r * L.ldz + j];
-        part_bias[(long long)tile * EF + e * F + f0 + j] = s;
-      }
-    }
-    __syncthreads();
-  }
-
-  if constexpr (kMode == kDx) {
-    float* dx_part = ws_dx + ((long long)split * T + t0) * C;
-    for (int i = tid; i < rows * C; i += NTHREADS) {
-      const int r = i / C, c = i % C;
-      dx_part[i] = sAcc[r * L.ldacc + c];
-    }
-    float* dp_part = ws_dp + ((long long)split * T + t0) * E;
-    for (int i = tid; i < rows * E; i += NTHREADS) {
-      float bias = 0.f;
-      if (split == 0) {  // dout . b2_e, once per token
-        const int r = i / E, e = i % E;
-        for (int c = 0; c < C; ++c)
-          bias = fmaf(__bfloat162float(sDO[r * L.ldx + c]), b2[(long long)e * C + c], bias);
-      }
-      dp_part[i] = sDP[i] + bias;
-    }
-  }
-}
-
-// Largest token tile, then widest F-chunk, whose shared memory fits.
-bool pick_legacy_tiles(int mode, int C, int F, int E, int* bt, int* fc) {
-  const int bts[] = {64, 32, 16};
-  const int fcs[] = {64, 32, 16};
-  for (int b : bts) {
-    for (int f : fcs) {
-      if (F % f != 0) continue;
-      if (LegacyLayout(mode, b, f, C, E).total <= SMEM_LIMIT) {
-        *bt = b;
-        *fc = f;
-        return true;
-      }
-    }
-  }
-  return false;
-}
-
-template <int kMode>
-int launch_legacy_token(const void* x, const void* fw, const void* cw, const void* tl,
-                        const void* inv_temp, const void* w1, const void* b1, const void* w2,
-                        const void* b2, const void* dout, void* ws_dx, void* ws_dp, void* sc_f,
-                        void* sc_dy, void* part_bias, int T, int C, int Hd, int E, int F,
-                        const int* plan, cudaStream_t st) {
-  int bt = 0, fc = 0;
-  if (!pick_legacy_tiles(kMode, C, F, E, &bt, &fc) || bt != plan[0] || fc != plan[1] ||
-      plan[2] < 1 || plan[2] > 65535 || plan[3] < 1)
+  if (T < 1 || C % 16 != 0 || F % 16 != 0 || F < 16 || E < 1 || E > MAX_E)
     return static_cast<int>(cudaErrorInvalidValue);
-  const LegacyLayout L(kMode, bt, fc, C, E);
-  cudaError_t err = cudaFuncSetAttribute(moe_legacy_token_kernel<kMode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  moe_legacy_token_kernel<kMode><<<dim3((T + bt - 1) / bt, plan[2]), NTHREADS, L.total, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(fw), static_cast<const float*>(cw),
-      static_cast<const float*>(tl), static_cast<const float*>(inv_temp),
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<const bf16*>(dout), static_cast<float*>(ws_dx),
-      static_cast<float*>(ws_dp), static_cast<bf16*>(sc_f), static_cast<bf16*>(sc_dy),
-      static_cast<float*>(part_bias), T, C, Hd, E, F, bt, fc);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out [n] = the sum of ws [k, n] over k < count, in order.
-int sum_into(const void* ws, void* out, long long n, int count, cudaStream_t st) {
-  moe_sum_kernel<<<grid_for(n), 256, 0, st>>>(static_cast<const float*>(ws),
-                                                static_cast<float*>(out), n, count);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out [M, N] = A^T B over T tokens through `splits` partials in ws (null
-// when splits == 1), as the fused backward's weight gradients.
-int wgrad(const void* A, int lda, const void* B, int ldb, void* ws, void* out, int T, int M,
-          int N, int splits, cudaStream_t st) {
-  float* dst = static_cast<float*>(splits > 1 ? ws : out);
-  const dim3 grid((N + WT - 1) / WT, (M + WT - 1) / WT, splits);
-  moe_wgrad_kernel<<<grid, NTHREADS, 0, st>>>(static_cast<const bf16*>(A),
-                                              static_cast<const bf16*>(B), dst, T, M, N, lda,
-                                              ldb, wgrad_chunk(T, splits));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return sum_into(ws, out, (long long)M * N, splits, st);
-}
-
-}  // namespace
-
-extern "C" {
-
-// The plan of one legacy entry point (mode 0 dx, 1 dw2, 2 dw1) at
-// (T, C, F, E) on a card with `sms` SMs: plan[0..3] = token tile, F-chunk,
-// splits of the (expert, F-chunk) loop, and the T splits of the weight-
-// gradient product (1 for dx). Returns 0 if no tile fits shared memory.
-int moegan_moe_legacy_plan(int mode, int T, int C, int F, int E, int sms, int* plan) {
-  int bt = 0, fc = 0;
-  if (mode < kDx || mode > kDw1 || !pick_legacy_tiles(mode, C, F, E, &bt, &fc)) return 0;
-  const int ntiles = (T + bt - 1) / bt;
-  const int nch = E * (F / fc);
-  const int s = (sms + ntiles - 1) / ntiles;
-  plan[0] = bt;
-  plan[1] = fc;
-  plan[2] = s < 1 ? 1 : (s > nch ? nch : s);
-  plan[3] = mode == kDw1 ? wgrad_splits(T, C, E * F, sms)
-                         : (mode == kDw2 ? wgrad_splits(T, F, C, sms) : 1);
-  return 1;
-}
-
-// dx_ffn [T, C] and dp [T, E], fp32 (replaces _bwd_dx_kernel). ws_dx
-// [plan[2], T, C] and ws_dp [plan[2], T, E] fp32 scratch.
-int moegan_moe_bwd_dx(const void* x, const void* fw, const void* cw, const void* tl,
-                      const void* inv_temp, const void* w1, const void* b1, const void* w2,
-                      const void* b2, const void* dout, void* ws_dx, void* ws_dp, void* dx,
-                      void* dp, int T, int C, int Hd, int E, int F, const int* plan,
-                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = launch_legacy_token<kDx>(x, fw, cw, tl, inv_temp, w1, b1, w2, b2, dout, ws_dx, ws_dp,
-                                     nullptr, nullptr, nullptr, T, C, Hd, E, F, plan, st);
-  if (err) return err;
-  if ((err = sum_into(ws_dx, dx, (long long)T * C, plan[2], st))) return err;
-  return sum_into(ws_dp, dp, (long long)T * E, plan[2], st);
-}
-
-// dW2 [E, F, C] and db2 [E, C], fp32 (replaces _bwd_dw2_kernel). Scratch:
-// h [T, E*F] and dy [T, E*C] bf16, part_db2 [ceil(T / plan[0]), E*C] fp32,
-// ws_w [E, plan[3], F, C] fp32 (null when plan[3] == 1).
-int moegan_moe_bwd_dw2(const void* x, const void* fw, const void* cw, const void* tl,
-                       const void* inv_temp, const void* w1, const void* b1, const void* dout,
-                       void* h, void* dy, void* part_db2, void* ws_w, void* dw2, void* db2, int T,
-                       int C, int Hd, int E, int F, const int* plan, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (plan[3] > 1 && ws_w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int err = launch_legacy_token<kDw2>(x, fw, cw, tl, inv_temp, w1, b1, nullptr, nullptr, dout,
-                                      nullptr, nullptr, h, dy, part_db2, T, C, Hd, E, F, plan, st);
-  if (err) return err;
-  const long long fcn = (long long)F * C;
-  for (int e = 0; e < E; ++e) {
-    err = wgrad(static_cast<const bf16*>(h) + (long long)e * F, E * F,
-                static_cast<const bf16*>(dy) + (long long)e * C, E * C,
-                plan[3] > 1 ? static_cast<float*>(ws_w) + e * plan[3] * fcn : nullptr,
-                static_cast<float*>(dw2) + e * fcn, T, F, C, plan[3], st);
-    if (err) return err;
+#define MOE_BWD(CP)                                                                         \
+  launch_bwd<CP>(x, probs, w1, b1, w2, b2, dout, dz, ph, ws_dx, ws_dp, ws_w1, ws_w2, ws_db1, \
+                 ws_db2, dx, dp, dw1t, db1, dw2, db2, T, C, E, F, plan, st)
+  switch (padded_width(C)) {
+    case 32: return MOE_BWD(32);
+    case 64: return MOE_BWD(64);
+    case 128: return MOE_BWD(128);
+    case 256: return MOE_BWD(256);
+    case 512: return MOE_BWD(512);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return sum_into(part_db2, db2, (long long)E * C, (T + plan[0] - 1) / plan[0], st);
-}
-
-// dW1s [C, E*F] (expert e's dW1 in columns e*F ...) and db1 [E*F], fp32
-// (replaces _bwd_dw1_kernel). Scratch: dz [T, E*F] bf16, part_db1
-// [ceil(T / plan[0]), E*F] fp32, ws_w [plan[3], C, E*F] fp32 (null when
-// plan[3] == 1).
-int moegan_moe_bwd_dw1(const void* x, const void* fw, const void* cw, const void* tl,
-                       const void* inv_temp, const void* w1, const void* b1, const void* w2,
-                       const void* dout, void* dz, void* part_db1, void* ws_w, void* dw1s,
-                       void* db1, int T, int C, int Hd, int E, int F, const int* plan,
-                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (plan[3] > 1 && ws_w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int err = launch_legacy_token<kDw1>(x, fw, cw, tl, inv_temp, w1, b1, w2, nullptr, dout,
-                                      nullptr, nullptr, dz, nullptr, part_db1, T, C, Hd, E, F,
-                                      plan, st);
-  if (err) return err;
-  if ((err = wgrad(x, C, dz, E * F, ws_w, dw1s, T, C, E * F, plan[3], st))) return err;
-  return sum_into(part_db1, db1, (long long)E * F, (T + plan[0] - 1) / plan[0], st);
+#undef MOE_BWD
 }
 
 }  // extern "C"

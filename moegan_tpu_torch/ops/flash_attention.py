@@ -112,16 +112,6 @@ def _strides(q, k, v):
     return (ctypes.c_longlong * 9)(*qs[:3], *ks[:3], *vs[:3])
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(stem: str, name: str, argtypes: tuple):
-    """The C entry point `name` of csrc/<stem>.cu, with its argument types set once."""
-    lib = _build.load(stem)
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = list(argtypes)
-    return lib, fn
-
-
 _FWD_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
 _BWD_ARGS = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 4 + (
@@ -146,7 +136,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse:
     if T == 0 or B * H == 0:
         return (o, lse) if with_lse else o
     block_q = flash_plan(B, H, T, D, _sm_count(q.device))
-    lib, fn = _entry("flash_attention", "moegan_flash_attention_fwd", _FWD_ARGS)
+    lib, fn = _build.entry("flash_attention", "moegan_flash_attention_fwd", _FWD_ARGS)
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
@@ -186,7 +176,7 @@ def flash_attention_bwd(q, k, v, o, lse, do):
                       for _ in range(4))
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     scale = _q_scale(D, q.dtype)
-    lib, fn = _entry("flash_attention_bwd", "moegan_flash_attention_bwd", _BWD_ARGS)
+    lib, fn = _build.entry("flash_attention_bwd", "moegan_flash_attention_bwd", _BWD_ARGS)
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), qp.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

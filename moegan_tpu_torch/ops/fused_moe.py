@@ -17,24 +17,30 @@ fused_moe.py:67-77); then sum_e p_e * (gelu_erf(x @ W1_e + b1_e) @ W2_e +
 b2_e), with the hidden activation rounded to x's dtype.
 
 `FusedMoEFunction` is the differentiable form under soft routing (the
-training path): the forward kernel saves only its inputs, as `_fused_fwd`
-does; the backward kernel gives the FFN and combine part of the gradient,
-and the router chain's part is plain autograd over a recompute of
-`router_probs`, fed the probs cotangent plus the combine's, as the JAX
-package leaves it to XLA (`_fused_moe_bwd_v2`).
+training path): the forward saves its inputs, as `_fused_fwd` does, and
+its routing, which the backward kernels read; they give the FFN and
+combine part of the gradient, and the router chain's part is plain
+autograd over a recompute of `router_probs`, fed the probs cotangent plus
+the combine's, as the JAX package leaves it to XLA (`_fused_moe_bwd_v2`).
 
 The expert-parallel combine (`moe_ffn_combine`, `MoECombineFunction`)
 replaces the four probs-as-input TPU kernels `_combine_kernel`,
 `_combine_kernel_v2` (forward) and `_combine_bwd_kernel`,
 `_combine_bwd_kernel_v2` (backward): the routing probs are an input (a
-rank's local expert columns) and there is no router chain. The forward and
-backward kernels above serve it, instantiated without their router
-(`moegan_moe_combine_fwd`, `moegan_moe_combine_bwd`).
+rank's local expert columns) and there is no router chain. The forward
+kernel above serves it instantiated without its router
+(`moegan_moe_combine_fwd`); the backward kernels are the same launches
+(`moegan_moe_combine_bwd`).
+
+The launch plans (`moe_plan`, `moe_bwd_plan`: the splits of the forward's
+and the backward token kernel's (expert, chunk) loop and the weight
+gradients' T ranges) are pure Python; each C entry point checks what it is
+given and sizes its own tiles and shared memory.
 
 The legacy three-kernel backward of the JAX package (`MOEGAN_PALLAS_MOE_BWD=3`)
 replaces its TPU kernels `_bwd_dx_kernel`, `_bwd_dw2_kernel` and
 `_bwd_dw1_kernel` (launched by `_fused_moe_bwd_pallas`) with three entry
-points of `csrc/fused_moe_bwd.cu`: `moe_bwd_dx`, `moe_bwd_dw2` and
+points of `csrc/fused_moe_legacy.cu`: `moe_bwd_dx`, `moe_bwd_dw2` and
 `moe_bwd_dw1`, each recomputing the routing, z and h for itself and
 rounding where its TPU kernel rounds (plain twins `moe_bwd_dx_reference`,
 `moe_bwd_dw2_reference`, `moe_bwd_dw1_reference`).
@@ -59,6 +65,7 @@ import ctypes
 import functools
 import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -189,8 +196,9 @@ def _check_tensors(want: dict) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if C % 16 or F % 16:
-        raise ValueError(f"the kernel takes C and F multiples of 16, got C={C}, F={F}")
+    if C % 16 or F % 16 or C > MAX_C:
+        raise ValueError(f"the kernel takes C and F multiples of 16, C at most {MAX_C}; "
+                         f"got C={C}, F={F}")
     if E > 16:
         raise ValueError(f"the kernel takes at most 16 experts, got {E}")
 
@@ -237,18 +245,13 @@ def fused_moe_ffn(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, hard: bool
     probs = torch.empty((T, E), dtype=torch.float32, device=x.device)
     if T == 0:
         return out, probs
-    _, _, splits = kernel_plan(T, C, F, E, x.device)
+    plan = kernel_plan(T, C, F, E, x.device)
     # per-split partial sums of the FFN, added by the kernel's second pass
-    ws = torch.empty((splits, T, C), dtype=torch.float32, device=x.device) if splits > 1 else None
-    lib = _build.load("fused_moe")
-    fn = lib.moegan_fused_moe_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    ws = _split_ws(plan.splits, T, C, x.device)
+    lib, fn = _build.entry("fused_moe", "moegan_fused_moe_fwd", _FWD_ARGS)
     rc = fn(
-        x.data_ptr(), fw.data_ptr(), cw_f.data_ptr(), text_logits.data_ptr(),
-        inv_temp.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), probs.data_ptr(), ws.data_ptr() if ws is not None else None,
-        T, C, fw.shape[-1], E, F, int(hard), splits,
+        *_ptrs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, out, probs, ws),
+        T, C, fw.shape[-1], E, F, int(hard), plan.splits,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, "fused_moe_fwd")
@@ -259,30 +262,110 @@ def fused_moe_ffn(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, hard: bool
 fused_moe_ffn.launches = 0
 
 
-def kernel_plan(T: int, C: int, F: int, E: int, device) -> tuple[int, int, int]:
-    """(token tile, F-chunk, splits) of the CUDA kernel at these widths on `device`."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _plan(T, C, F, E, sms)
+# --- launch plans ------------------------------------------------------------------------
+
+MAX_C = 512  # the widest C the kernels are compiled for
+_FC = 64  # hidden units per (expert, chunk) step of the token kernels
+_WGRAD_TILE = 32  # tokens per step of the weight-gradient kernels; a T range is a multiple
+
+
+def padded_width(C: int) -> int:
+    """The width CP the kernels are compiled for that takes C (columns past C are zero)."""
+    for cp in (32, 64, 128, 256, 512):
+        if C <= cp:
+            return cp
+    raise ValueError(f"the kernels take C up to {MAX_C}, got {C}")
+
+
+def _token_tile(C: int) -> int:
+    """Tokens a block of the token kernels (`Tile<CP>::BT` of csrc/moe_tiles.cuh)."""
+    return 32 if padded_width(C) == 512 else 64
+
+
+def _splits(parts: int, most: int, sms: int) -> int:
+    """How many ways to split each of `parts` grid rows (at most `most`) so the
+    grid holds about two blocks per SM: whole waves, not a wave and a bit."""
+    target = 2 * sms
+    return 1 if parts >= target else max(1, min(most, target // parts))
+
+
+class MoePlan(NamedTuple):
+    """The forward kernel's launch at one shape."""
+    block_t: int  # tokens a block
+    splits: int  # blocks sharing a token tile's (expert, chunk) loop
+
+
+def moe_plan(T: int, C: int, F: int, E: int, sms: int) -> MoePlan:
+    """The forward (and combine) kernel's plan at [T, C] tokens, F hidden units
+    and E experts on a card with `sms` SMs (T >= 1)."""
+    bt = _token_tile(C)
+    return MoePlan(bt, _splits(-(-T // bt), E * -(-F // _FC), sms))
+
+
+class MoeBwdPlan(NamedTuple):
+    """The backward's launches at one shape: the token kernel's tile and
+    splits, and the weight-gradient kernel's T ranges."""
+    block_t: int
+    splits: int
+    t_ranges: int  # T ranges of the weight-gradient grid
+    t_range: int  # tokens a range (the last may be shorter)
+    scratch: bool  # dz and p*h through [T, E*F] scratches (C > 64), else recomputed
+
+    def ints(self) -> tuple[int, ...]:
+        return self[:4]
+
+
+def wgrad_grid(C: int, F: int, E: int) -> int:
+    """Weight-gradient blocks for each T range: 128 x 128 tiles of dW1^T and
+    dW2 [E*F, C] on the scratch route (C > 64), else one a (expert, 64 hidden units)."""
+    return 2 * -(-E * F // 128) * -(-C // 128) if padded_width(C) >= 128 else E * -(-F // 64)
+
+
+def moe_bwd_plan(T: int, C: int, F: int, E: int, sms: int) -> MoeBwdPlan:
+    """The backward (and combine backward) kernels' plan (T >= 1)."""
+    bt = _token_tile(C)
+    grid = wgrad_grid(C, F, E)
+    ranges = min(_splits(grid, T, sms), -(-T // _WGRAD_TILE))
+    t_range = -(-(-(-T // ranges)) // _WGRAD_TILE) * _WGRAD_TILE
+    return MoeBwdPlan(bt, _splits(-(-T // bt), E * -(-F // _FC), sms), -(-T // t_range), t_range,
+                      padded_width(C) >= 128)
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(T: int, C: int, F: int, E: int, sms: int) -> tuple[int, int, int]:
-    lib = _build.load("fused_moe")
-    bt, fc, splits = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-    fn = lib.moegan_fused_moe_plan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
-    if not fn(T, C, F, E, sms, ctypes.byref(bt), ctypes.byref(fc), ctypes.byref(splits)):
-        raise ValueError(f"no tile fits shared memory at C={C}, F={F}, E={E}")
-    return bt.value, fc.value, splits.value
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def fused_moe_bwd(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
+def kernel_plan(T: int, C: int, F: int, E: int, device) -> MoePlan:
+    """`moe_plan` on `device`'s SMs."""
+    return moe_plan(T, C, F, E, _sm_count(torch.device(device)))
+
+
+def bwd_kernel_plan(T: int, C: int, F: int, E: int, device) -> MoeBwdPlan:
+    """`moe_bwd_plan` on `device`'s SMs."""
+    return moe_bwd_plan(T, C, F, E, _sm_count(torch.device(device)))
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = (_P,) * 12 + (_I,) * 7 + (_P,)
+_COMBINE_FWD_ARGS = (_P,) * 8 + (_I,) * 5 + (_P,)
+_COMBINE_BWD_ARGS = (_P,) * 21 + (_I,) * 4 + (ctypes.POINTER(ctypes.c_int), _P)
+
+
+def _split_ws(splits: int, T: int, C: int, device):
+    """The forward's [splits, T, C] fp32 partial sums, or None when not split."""
+    return torch.empty((splits, T, C), dtype=torch.float32, device=device) if splits > 1 else None
+
+
+def fused_moe_bwd(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout, probs=None):
     """The FFN and combine part of the soft-routing gradient of `fused_moe_ffn`.
 
     Takes the forward's inputs (as `fused_moe_ffn`, inv_temp a 1-element
     tensor) and the output cotangent dout [T, C] (x's dtype). Returns
     (dx_ffn, dp, dw1, db1, dw2, db2) in float32, as `moe_ffn_bwd_reference`.
+    The kernels read the soft routing [T, E]: `probs`, the forward's second
+    output, as `FusedMoEFunction` passes it, or else the forward kernel's
+    routing computed here. The plain version recomputes it either way.
     """
     if x.device.type == "cpu":
         return moe_ffn_bwd_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout)
@@ -295,21 +378,12 @@ def fused_moe_bwd(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
     dout = dout.to(x.dtype).contiguous()
     if dout.shape != x.shape:
         raise ValueError(f"dout: want {tuple(x.shape)}, got {tuple(dout.shape)}")
-    plan, scratch, outs = _bwd_buffers(x, E, F)
-    lib = _build.load("fused_moe_bwd")
-    fn = lib.moegan_fused_moe_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
-    ]
-    rc = fn(
-        *_ptrs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout, *scratch, *outs),
-        T, C, fw.shape[-1], E, F, (ctypes.c_int * 5)(*plan),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, rc, "fused_moe_bwd")
+    if probs is None:
+        probs = fused_moe_ffn(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2)[1]
+    _check_tensors(dict(_ffn_want(x, w1, b1, w2, b2), probs=(probs, torch.float32, (T, E))))
+    outs = _combine_bwd_run(x, probs, w1, b1, w2, b2, dout)
     fused_moe_bwd.launches += 1
-    return _bwd_outputs(outs, C, E, F)
+    return outs
 
 
 fused_moe_bwd.launches = 0
@@ -321,47 +395,35 @@ def _ptrs(*tensors):
 
 def _bwd_buffers(x, E: int, F: int):
     """(plan, scratch, outputs) of the backward kernels for tokens x [T, C]:
-    the bf16 scratch of dz and p*h for the weight-gradient products and the
-    partial sums that the later passes add in a fixed order; the fp32
-    outputs dx, dp, dw1s [C, E*F], db1, dw2, db2."""
+    the bf16 dz and p*h [T, E*F] of the scratch route, and the partial sums that the last pass
+    adds in a fixed order (None where the plan does not use them); the fp32
+    outputs dx, dp, dw1t [E, F, C] (dW1 transposed), db1, dw2, db2."""
     T, C = x.shape
-    plan = bwd_kernel_plan(T, C, F, E, x.device)
-    bt, _, splits, ws1, ws2 = plan
-    ntiles = -(-T // bt)
     f32 = dict(dtype=torch.float32, device=x.device)
-    bf = dict(dtype=x.dtype, device=x.device)
-    scratch = (torch.empty((T, E * F), **bf), torch.empty((T, E * F), **bf),
-               torch.empty((splits, T, C), **f32), torch.empty((splits, T, E), **f32),
-               torch.empty((ntiles, E * F), **f32), torch.empty((ntiles, E * C), **f32),
-               torch.empty((ws1, C, E * F), **f32) if ws1 > 1 else None,
-               torch.empty((ws2, E * F, C), **f32) if ws2 > 1 else None)
-    outs = (torch.empty((T, C), **f32), torch.empty((T, E), **f32),
-            torch.empty((C, E * F), **f32), torch.empty((E, F), **f32),
-            torch.empty((E, F, C), **f32), torch.empty((E, C), **f32))
+    alloc = torch.empty if T else torch.zeros  # the kernels write every output element
+    outs = (alloc((T, C), **f32), alloc((T, E), **f32), alloc((E, F, C), **f32),
+            alloc((E, F), **f32), alloc((E, F, C), **f32), alloc((E, C), **f32))
+    if T == 0:
+        return None, (), outs
+    plan = bwd_kernel_plan(T, C, F, E, x.device)
+    split, ranges = plan.splits > 1, plan.t_ranges > 1
+    # the bias gradients' partials: per token tile (scratch) or per T range
+    nbias = -(-T // plan.block_t) if plan.scratch else plan.t_ranges
+    bias = plan.scratch or ranges
+
+    def maybe(use, shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=x.device) if use else None
+
+    scratch = (maybe(plan.scratch, (T, E * F), x.dtype), maybe(plan.scratch, (T, E * F), x.dtype),
+               maybe(split, (plan.splits, T, C)), maybe(split, (plan.splits, T, E)),
+               maybe(ranges, (plan.t_ranges, E, F, C)), maybe(ranges, (plan.t_ranges, E, F, C)),
+               maybe(bias, (nbias, E, F)), maybe(bias, (nbias, E, C)))
     return plan, scratch, outs
 
 
-def _bwd_outputs(outs, C: int, E: int, F: int):
-    dx, dp, dw1s, db1, dw2, db2 = outs
-    return dx, dp, dw1s.reshape(C, E, F).permute(1, 0, 2), db1, dw2, db2
-
-
-def bwd_kernel_plan(T: int, C: int, F: int, E: int, device) -> tuple[int, int, int, int, int]:
-    """(token tile, F-chunk, splits, dW1 T-splits, dW2 T-splits) of the backward kernel."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _bwd_plan(T, C, F, E, sms)
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_plan(T: int, C: int, F: int, E: int, sms: int) -> tuple[int, int, int, int, int]:
-    lib = _build.load("fused_moe_bwd")
-    plan = (ctypes.c_int * 5)()
-    fn = lib.moegan_fused_moe_bwd_plan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-    if not fn(T, C, F, E, sms, plan):
-        raise ValueError(f"no tile fits shared memory at C={C}, F={F}, E={E}")
-    return tuple(plan)
+def _bwd_outputs(outs):
+    dx, dp, dw1t, db1, dw2, db2 = outs
+    return dx, dp, dw1t.transpose(1, 2), db1, dw2, db2
 
 
 # --- the legacy three-kernel backward: the CUDA entry points ------------------------------
@@ -371,13 +433,12 @@ _LEGACY_MODES = {"dx": 0, "dw2": 1, "dw1": 2}
 
 def legacy_kernel_plan(which: str, T: int, C: int, F: int, E: int, device) -> tuple[int, ...]:
     """(token tile, F-chunk, splits, weight-gradient T-splits) of a legacy entry point."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _legacy_plan(_LEGACY_MODES[which], T, C, F, E, sms)
+    return _legacy_plan(_LEGACY_MODES[which], T, C, F, E, _sm_count(torch.device(device)))
 
 
 @functools.lru_cache(maxsize=None)
 def _legacy_plan(mode: int, T: int, C: int, F: int, E: int, sms: int) -> tuple[int, ...]:
-    lib = _build.load("fused_moe_bwd")
+    lib = _build.load("fused_moe_legacy")
     plan = (ctypes.c_int * 4)()
     fn = lib.moegan_moe_legacy_plan
     fn.restype = ctypes.c_int
@@ -409,7 +470,7 @@ def _legacy_run(which, plan, inputs, buffers):
     x, fw, w1 = inputs[0], inputs[1], inputs[5]
     T, C = x.shape
     E, _, F = w1.shape
-    lib = _build.load("fused_moe_bwd")
+    lib = _build.load("fused_moe_legacy")
     fn = getattr(lib, f"moegan_moe_bwd_{which}")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * (len(inputs) + len(buffers)) + [ctypes.c_int] * 5 + [
@@ -514,12 +575,14 @@ class FusedMoEFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2):
-        ctx.save_for_backward(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2)
-        return fused_moe_ffn(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, hard=False)
+        out, probs = fused_moe_ffn(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, hard=False)
+        # the inputs, and the routing for the backward kernel to read
+        ctx.save_for_backward(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, probs)
+        return out, probs
 
     @staticmethod
     def backward(ctx, dout, dprobs):
-        saved = ctx.saved_tensors
+        *saved, probs = ctx.saved_tensors
         x, fw, cw_f, tl, it, w1, b1, w2, b2 = saved
         mode = moe_bwd_mode()
         if mode == "0":
@@ -531,7 +594,7 @@ class FusedMoEFunction(torch.autograd.Function):
             dw1, db1 = moe_bwd_dw1(x, fw, cw_f, tl, it, w1, b1, w2, dout)
         else:
             dx_ffn, dp, dw1, db1, dw2, db2 = fused_moe_bwd(x, fw, cw_f, tl, it, w1, b1, w2, b2,
-                                                           dout)
+                                                           dout, probs=probs)
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in (x, fw, cw_f, tl, it)]
             probs = router_probs(*leaves)
@@ -581,16 +644,12 @@ def moe_ffn_combine(x, probs, w1, b1, w2, b2):
     out = torch.empty((T, C), dtype=x.dtype, device=x.device)
     if T == 0:
         return out
-    _, _, splits = kernel_plan(T, C, F, E, x.device)
-    ws = torch.empty((splits, T, C), dtype=torch.float32, device=x.device) if splits > 1 else None
-    lib = _build.load("fused_moe")
-    fn = lib.moegan_moe_combine_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    plan = kernel_plan(T, C, F, E, x.device)
+    ws = _split_ws(plan.splits, T, C, x.device)
+    lib, fn = _build.entry("fused_moe", "moegan_moe_combine_fwd", _COMBINE_FWD_ARGS)
     rc = fn(
-        x.data_ptr(), probs.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
-        T, C, E, F, splits, torch.cuda.current_stream(x.device).cuda_stream,
+        *_ptrs(x, probs, w1, b1, w2, b2, out, ws), T, C, E, F, plan.splits,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, "moe_combine_fwd")
     moe_ffn_combine.launches += 1
@@ -608,25 +667,29 @@ def moe_ffn_combine_bwd(x, probs, w1, b1, w2, b2, dout):
     if x.device.type != "cuda":
         raise ValueError(f"moe_ffn_combine_bwd runs on cpu or cuda tensors, got {x.device}")
     _check_combine_inputs(x, probs, w1, b1, w2, b2)
-    T, C = x.shape
-    E, _, F = w1.shape
     dout = dout.to(x.dtype).contiguous()
     if dout.shape != x.shape:
         raise ValueError(f"dout: want {tuple(x.shape)}, got {tuple(dout.shape)}")
+    outs = _combine_bwd_run(x, probs, w1, b1, w2, b2, dout)
+    moe_ffn_combine_bwd.launches += 1
+    return outs
+
+
+def _combine_bwd_run(x, probs, w1, b1, w2, b2, dout):
+    """The backward kernels with the routing probs given (checked CUDA inputs)."""
+    T, C = x.shape
+    E, _, F = w1.shape
     plan, scratch, outs = _bwd_buffers(x, E, F)
-    lib = _build.load("fused_moe_bwd")
-    fn = lib.moegan_moe_combine_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
-    ]
+    if T == 0:
+        return _bwd_outputs(outs)
+    lib, fn = _build.entry("fused_moe_bwd", "moegan_moe_combine_bwd", _COMBINE_BWD_ARGS)
     rc = fn(
         *_ptrs(x, probs, w1, b1, w2, b2, dout, *scratch, *outs),
-        T, C, E, F, (ctypes.c_int * 5)(*plan), torch.cuda.current_stream(x.device).cuda_stream,
+        T, C, E, F, (ctypes.c_int * 4)(*plan.ints()),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, "moe_combine_bwd")
-    moe_ffn_combine_bwd.launches += 1
-    return _bwd_outputs(outs, C, E, F)
+    return _bwd_outputs(outs)
 
 
 moe_ffn_combine_bwd.launches = 0

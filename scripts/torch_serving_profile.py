@@ -81,6 +81,9 @@ def main() -> None:
             "batch": n, "wall_ms_median": statistics.median(walls), "wall_ms": walls,
             "profiled_wall_ms": prof_wall, "device_ms": device_ms,
             "device_busy_share": device_ms / prof_wall,
+            # the fused-MoE kernels (every kernel of ops/csrc/fused_moe*.cu names "moe")
+            "moe_device_ms": sum(e.self_device_time_total for e in events
+                                 if "moe" in e.key) / 1e3,
             "kernels": [{"name": e.key[:90], "calls": e.count,
                          "device_ms": e.self_device_time_total / 1e3} for e in top],
         }), flush=True)

@@ -79,7 +79,11 @@ def main() -> None:
         "wall_ms_median": statistics.median(walls), "wall_ms": walls,
         "images_per_s": cfg.batch_size / statistics.median(walls) * 1e3,
         "profiled_wall_ms": prof_wall, "device_ms": device_ms,
-        "device_busy_share": device_ms / prof_wall, "kernel_launches": sum(e.count for e in events),
+        "device_busy_share": device_ms / prof_wall,
+        # the fused-MoE kernels (every kernel of ops/csrc/fused_moe*.cu names "moe")
+        "moe_device_ms": sum(e.self_device_time_total for e in events
+                             if "moe" in e.key) / 1e3,
+        "kernel_launches": sum(e.count for e in events),
         "kernels": [{"name": e.key[:90], "calls": e.count,
                      "device_ms": e.self_device_time_total / 1e3} for e in top],
     }), flush=True)

@@ -90,6 +90,36 @@ def test_flash_plan_fits_every_shape(B):
     assert tfa.flash_plan(16, 1, 4096, 32, 1000) == 64
 
 
+@pytest.mark.parametrize("phase,B,E", [("serve", 4, 4), ("serve", 16, 4), ("train", 64, 4),
+                                       ("combine", 64, 2)])
+def test_moe_plans_fit_every_shape(phase, B, E):
+    # The five MoE blocks of the 64x64 generator (F = 4C) as the port launches
+    # them on the H100's 132 SMs: served at batch 4 and 16 (the forward),
+    # trained at batch 64 (forward and backward) and combined under expert
+    # parallelism 2 (2 local experts, forward and backward). Each kernel
+    # checks the plan it is given, and bounds its own shared memory by a
+    # static_assert when it is built.
+    sms = 132
+    for res, C in ((4, 512), (8, 256), (16, 128), (32, 64), (64, 32)):
+        T, F = B * res * res, 4 * C
+        plans = [tfm.moe_plan(T, C, F, E, sms)]
+        if phase != "serve":
+            plans.append(tfm.moe_bwd_plan(T, C, F, E, sms))
+        for plan in plans:
+            tiles, chunks = -(-T // plan.block_t), E * -(-F // 64)
+            assert F % 64 == 0 and 1 <= plan.splits <= chunks, (phase, res, plan)
+            # at least a block per SM wherever the tiles and chunks allow it
+            assert tiles * plan.splits >= min(sms, tiles * chunks), (phase, res, plan)
+        if phase != "serve":
+            bwd = plans[1]
+            assert bwd.t_range % 32 == 0 and bwd.scratch == (C > 64)
+            grid = tfm.wgrad_grid(C, F, E)
+            assert grid * bwd.t_ranges >= min(sms, grid * -(-T // 32))
+            # the T ranges [s * t_range, (s + 1) * t_range) cover T exactly once
+            ends = [min(T, (s + 1) * bwd.t_range) for s in range(bwd.t_ranges)]
+            assert ends[-1] == T and (bwd.t_ranges - 1) * bwd.t_range < T, (phase, res, bwd)
+
+
 @pytest.mark.parametrize("hard", [True, False])
 @pytest.mark.parametrize("kernel", ["v1", "v2"])
 def test_moe_plain_matches_pallas_kernel(kernel, hard):
