@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's 64x64 serving path, training step, distributed
-training and opt-in kernel configuration on one NVIDIA GPU and check them.
+training, opt-in kernel configuration and training CLI on one NVIDIA GPU and
+check them.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and nvcc (it builds the port's kernels from `moegan_tpu_torch/ops/csrc`).
@@ -28,7 +29,8 @@ failure (non-zero exit, no result line):
    backward), two calls bit-identical;
 4. the served slice: the default 64x64 generator built from a seed, written
    as `.npz` + `generator_config.json`, loaded by the port's
-   `InferenceHandler`, served over HTTP on 127.0.0.1; one lone /generate
+   `InferenceHandler` (with the random-init CLIP towers), served over HTTP on
+   127.0.0.1; one lone /generate
    (a batch-4 call) then 4 concurrent ones (one batch-16 call), every PNG
    decoded and checked; the forward kernels' launch counts are read around
    this phase alone;
@@ -65,8 +67,24 @@ failure (non-zero exit, no result line):
    backwards, 5 of each legacy entry point, 20 / 10 LayerNorm) and the
    batch-4 step against the CPU's under the same flags, to phase 7's
    limits; (d) one batch-16 generator call with MOEGAN_FUSED_LN=1 against
-   the default call (10 LayerNorm forwards, phase 5's limit). Phases 6 and 9
-   require 0 launches of these five kernels.
+   the default call (10 LayerNorm forwards, phase 5's limit). Phases 6, 9
+   and 11 require 0 launches of these five kernels.
+11. the training CLI's default run, `cli.train_model.main(["--synthetic",
+   "--epochs", "2", "--batch_size", "32", "--save_dir", D])` at the full
+   64x64 default configuration with the CLIP loss (random-init ViT-B/32
+   towers; 64 synthetic images, 2 steps an epoch): every loss and
+   clip_loss_{r} finite, two checkpoints, the sidecar,
+   `aurora_model_final.msgpack` and `generator_config.json` written, the
+   kernels' launches over the run exactly 4 steps' and 2 validation
+   batches'; the CLIP loss timed alone at batch 32; the same run with
+   `--no_clip_loss`; `--resume --epochs 3` against two uninterrupted 3-epoch
+   runs (step and counts equal; parameters and AdamW's moments within 4x
+   the two uninterrupted runs' own difference: cuDNN's, grid_sample's and
+   the upsample's backward kernels add in no fixed order); ms/step (CUDA
+   events, steps 3-6 of both 3-epoch runs); the directory served with a
+   string prompt over HTTP (images
+   64x64x3 and finite, the text embedding against the CPU's float32 tower,
+   cosine >= 0.999); `save_checkpoint` and `restore_checkpoint` timed.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -554,7 +572,7 @@ def moe_bwd_phase(dev, tfm):
 
 def build_model_dir(path):
     from moegan_tpu_torch.config import GeneratorConfig
-    from moegan_tpu_torch.convert import save_npz
+    from moegan_tpu_torch.utils.checkpoint import save_generator_params
     from moegan_tpu_torch.models.generator import AuroraGenerator
 
     cfg = GeneratorConfig()
@@ -563,7 +581,7 @@ def build_model_dir(path):
         for name, p in gen.named_parameters():
             if name.endswith("combined_mu"):
                 p.mul_(ROUTER_SCALE)
-    save_npz(os.path.join(path, "generator.npz"), gen.state_dict())
+    save_generator_params(os.path.join(path, "generator.npz"), gen.state_dict())
     with open(os.path.join(path, "generator_config.json"), "w") as f:
         f.write(cfg.to_json())
     return cfg, gen.state_dict()
@@ -576,9 +594,11 @@ def http_json(url, payload=None):
         return json.loads(r.read())
 
 
-def request_once(base, emb, seed, out, i):
+def request_once(base, text, seed, out, i):
+    """One /generate of 4 samples (`text` a prompt or an embedding), polled to its end."""
     t0 = time.perf_counter()
-    rid = http_json(f"{base}/generate", {"text": emb.tolist(), "num_samples": 4,
+    text = text if isinstance(text, str) else text.tolist()
+    rid = http_json(f"{base}/generate", {"text": text, "num_samples": 4,
                                          "truncation_psi": 0.7, "seed": seed})["request_id"]
     while True:
         job = http_json(f"{base}/poll?request_id={rid}")
@@ -1482,6 +1502,290 @@ def opt_in_phase(dev, smi, cfg, state_dict):
     return launches, ln_fwd_rows, ln_bwd_rows, legacy_rows
 
 
+# --- phase 11: the training CLI's default run ----------------------------------------------
+
+CLI_BATCH = 32
+# The synthetic set holds 64 images (an epoch is 2 steps at batch 32) and the
+# validation set 32 (one batch an epoch).
+CLI_STEPS_PER_EPOCH = 2
+# A validation batch's launches: the eval generator's forwards (hard routing).
+EXPECTED_EVAL_LAUNCHES = {"flash_attention_fwd": 3, "fused_moe_fwd": 5}
+PROMPT = "a red circle on a dark background"
+
+
+@contextlib.contextmanager
+def timed_steps(times: list, metrics: list):
+    """Record the CUDA-event time and the metrics of every training step that
+    `train_aurora_gan` takes inside the block."""
+    from moegan_tpu_torch.train import loop
+
+    orig = loop.make_train_step
+
+    def make(*args, **kwargs):
+        step = orig(*args, **kwargs)
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*a, **kw)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            metrics.append({k: v.tolist() for k, v in out[1].items()})
+            return out
+
+        return timed
+
+    loop.make_train_step = make
+    try:
+        yield
+    finally:
+        loop.make_train_step = orig
+
+
+def cli_run(argv):
+    """`cli.train_model.main(argv)` with every step timed: (state, step ms, step
+    metrics, the tower pack the run loaded or None, wall seconds)."""
+    from moegan_tpu_torch.cli import train_model
+    from moegan_tpu_torch.models import clip
+
+    times, metrics, towers = [], [], []
+    load = clip.load_clip_params
+
+    def keep(*args, **kwargs):
+        towers.append(load(*args, **kwargs))
+        return towers[-1]
+
+    clip.load_clip_params = keep
+    t0 = time.perf_counter()
+    try:
+        with timed_steps(times, metrics):
+            state = train_model.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        clip.load_clip_params = load
+    return state, times, metrics, (towers or [None])[0], time.perf_counter() - t0
+
+
+def compare_states(a, b):
+    """The largest differences of two training states: parameters in absolute
+    terms and relative to each tensor's largest |value|; AdamW's moments in
+    relative L2 over all tensors; step and counts."""
+    from moegan_tpu_torch.train.state import state_payload
+
+    pa, pb = state_payload(a, 0), state_payload(b, 0)
+    out = {"step": (pa["step"], pb["step"]), "param_max_abs": 0.0, "param_max_rel": 0.0,
+           "param_share_differing": 0.0}
+    n_diff = n_all = 0
+    for net in ("generator", "discriminator"):
+        for k, v in pb[net].items():
+            d = (pa[net][k] - v).abs()
+            out["param_max_abs"] = max(out["param_max_abs"], float(d.max()))
+            out["param_max_rel"] = max(out["param_max_rel"],
+                                       float(d.max() / v.abs().max().clamp_min(1e-30)))
+            n_diff += int((d > 0).sum())
+            n_all += d.numel()
+    out["param_share_differing"] = n_diff / n_all
+    for opt in ("optimizer_g", "optimizer_d"):
+        out[f"{opt}_counts"] = ((pa[opt]["count"], pa[opt]["notfinite_count"]),
+                                (pb[opt]["count"], pb[opt]["notfinite_count"]))
+        for m in ("mu", "nu"):
+            num = sum(float(((pa[opt][m][k] - v) ** 2).sum()) for k, v in pb[opt][m].items())
+            den = sum(float((v ** 2).sum()) for v in pb[opt][m].values())
+            out[f"{opt}_{m}_rel_l2"] = (num / max(den, 1e-300)) ** 0.5
+    return out
+
+
+def cli_phase(smi):
+    """Phase 11: `python -m moegan_tpu_torch.cli.train_model --synthetic` at the
+    default 64x64 configuration on the card, as a user runs it: (1) 2 epochs at
+    batch 32 with the CLIP loss (random-init ViT-B/32 towers), every step's
+    losses finite, checkpoints and the final msgpack written, the kernels'
+    launches counted over the run, ms/step beside the same run without the
+    CLIP loss; (2) resumed for a third epoch against an uninterrupted 3-epoch
+    run; (3) the written directory served, one string prompt over HTTP, its
+    embedding against the CPU's float32 text tower; (4) save and restore timed."""
+    from moegan_tpu_torch.cli import train_model
+    from moegan_tpu_torch.infer.png import decode_png
+    from moegan_tpu_torch.infer.serving import InferenceHandler, make_server
+    from moegan_tpu_torch.losses.clip_loss import multi_level_clip_loss
+    from moegan_tpu_torch.models.clip import load_clip_params
+    from moegan_tpu_torch.train.state import create_train_state
+    from moegan_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    root = tempfile.mkdtemp(prefix="moegan_smoke_cli_")
+    try:
+        run_dir, plain_dir, ckpt_dir = (os.path.join(root, n) for n in ("run", "no_clip", "ckpt"))
+        whole_dirs = [os.path.join(root, f"whole_{i}") for i in range(2)]
+        base = ["--synthetic", "--batch_size", str(CLI_BATCH)]
+        cfg = train_model.config_from_args(train_model.build_parser().parse_args(base))
+        taps = sorted(r for r, w in cfg.loss.clip_weights.items() if w > 0)
+        # (1) the default run: CLIP loss on
+        reset_counts()
+        state, times, metrics, towers, run_s = cli_run(base + ["--epochs", "2",
+                                                               "--save_dir", run_dir])
+        launches = launch_counts()
+        steps, evals = 2 * CLI_STEPS_PER_EPOCH, 2
+        want = {k: steps * n + evals * EXPECTED_EVAL_LAUNCHES.get(k, 0)
+                for k, n in EXPECTED_STEP_LAUNCHES.items()}
+        check(launches == want, f"cli: launches {launches}, want {want}")
+        check(len(metrics) == steps and state.step == steps, f"cli: {len(metrics)} steps")
+        for i, m in enumerate(metrics):
+            check(all(f"clip_loss_{r}" in m for r in taps), f"cli step {i + 1}: {sorted(m)}")
+            for k, v in m.items():
+                check(bool(np.isfinite(np.asarray(v)).all()), f"cli step {i + 1}: {k} = {v}")
+        files = sorted(os.listdir(run_dir))
+        check(files == ["aurora_model_final.msgpack", "checkpoint_2.pt", "checkpoint_4.pt",
+                        "generator_config.json", "metrics.jsonl", "model_math_version.txt"],
+              f"cli: the run wrote {files}")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            records = {json.loads(line)["name"] for line in f}
+        check({"val_clip_loss", "val_d_loss", "val_g_loss"} <= records, f"cli: {records}")
+        # The CLIP loss alone as the G phase runs it: every tap of a batch, one tower pass.
+        g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        tap_images = {r: torch.tanh(torch.randn((CLI_BATCH, r, r, 3), generator=g,
+                                                device="cuda")) for r in taps}
+        text = torch.randn((CLI_BATCH, 512), generator=g, device="cuda")
+        clip_loss_ms = time_ms(lambda: multi_level_clip_loss(towers, tap_images, text), 10)
+        del towers, tap_images
+        torch.cuda.empty_cache()
+        _, plain_times, plain_metrics, _, plain_s = cli_run(
+            base + ["--epochs", "2", "--no_clip_loss", "--save_dir", plain_dir])
+        check(not any(k.startswith("clip_loss") for k in plain_metrics[-1]), "cli: no_clip_loss")
+
+        # (2) resumed for a third epoch, against two uninterrupted 3-epoch runs
+        torch.cuda.empty_cache()
+        resumed, resumed_times, _, _, resume_s = cli_run(base + ["--epochs", "3", "--resume",
+                                                                 "--save_dir", run_dir])
+        check(len(resumed_times) == CLI_STEPS_PER_EPOCH, f"resume: {len(resumed_times)} steps")
+        whole = []
+        for d in whole_dirs:
+            torch.cuda.empty_cache()
+            whole.append(cli_run(base + ["--epochs", "3", "--save_dir", d]))
+        diff = compare_states(resumed, whole[0][0])
+        spread = compare_states(whole[1][0], whole[0][0])
+        # cuDNN's, grid_sample's and the bilinear upsample's backward kernels add
+        # in no fixed order, so two runs from the same seed differ by rounding,
+        # which the adversarial steps grow (the CPU test holds resume bit for
+        # bit). The resumed run must be as close to the uninterrupted one as a
+        # second uninterrupted run is: each difference within 4x that spread,
+        # step and counts equal. A resume that drew other noise or data would
+        # put AdamW's first moment off by the last steps' whole share (~50 %).
+        print(f"resume: resumed against uninterrupted 3-epoch run: {json.dumps(diff)}; two "
+              f"uninterrupted runs: {json.dumps(spread)}", flush=True)
+        check(diff["step"][0] == diff["step"][1] == 3 * CLI_STEPS_PER_EPOCH, f"resume: {diff}")
+        opts = ("optimizer_g", "optimizer_d")
+        check(all(diff[f"{o}_counts"][0] == diff[f"{o}_counts"][1] for o in opts),
+              f"resume: {diff}")
+        for key in ["param_max_abs"] + [f"{o}_{m}_rel_l2" for o in opts for m in ("mu", "nu")]:
+            check(diff[key] <= 4 * spread[key] + 1e-6,
+                  f"resume: {key} {diff[key]} against two uninterrupted runs' {spread[key]}")
+        whole_times = whole[0][1] + whole[1][1]
+        clip_ms = float(np.median(whole[0][1][2:] + whole[1][1][2:]))
+        plain_ms = float(np.median(plain_times[2:]))
+        print(f"cli 64x64 batch {CLI_BATCH}: {clip_ms:.2f} ms/step with the CLIP loss (taps "
+              f"{taps}; median of steps 3-6 of two 3-epoch runs), {plain_ms:.2f} without "
+              f"(steps 3-4); the CLIP loss alone {clip_loss_ms:.2f} ms, "
+              f"{100 * clip_loss_ms / clip_ms:.1f} % of the step; on {smi}", flush=True)
+        whole_s = [w[4] for w in whole]
+        del whole
+        torch.cuda.empty_cache()
+
+        # (3) the written directory served: a string prompt over HTTP
+        t_serve = time.perf_counter()
+        reset_counts()
+        handler = InferenceHandler.from_model_dir(run_dir, device="cuda")
+        served = handler.sampler.gen.state_dict()  # the resumed run's final generator
+        for k, v in resumed.generator.state_dict().items():
+            check(torch.equal(served[k], v), f"serve: {k} differs from the trained generator")
+        handler.batcher.prewarm()
+        server = make_server(handler, host="127.0.0.1", port=0)
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        results = [None, None]
+        try:
+            for i in range(2):  # the first call of the text tower pays for its set-up
+                request_once(url, PROMPT, 7, results, i)
+            images = handler.sampler(PROMPT, num_samples=4, seed=7)
+            card_emb = handler.sampler.encode_text(PROMPT)[0].float().cpu()
+            # Where a prompt's time goes: the text tower on this (warm) thread,
+            # and on fresh threads, as each HTTP job runs on a thread of its own.
+            encode_ms = time_ms(lambda: handler.sampler.encode_text(PROMPT), 5)
+            thread_ms = []
+
+            def encode_on_new_thread():
+                t0 = time.perf_counter()
+                handler.sampler.encode_text(PROMPT)
+                torch.cuda.synchronize()
+                thread_ms.append((time.perf_counter() - t0) * 1e3)
+
+            for _ in range(2):
+                th_enc = threading.Thread(target=encode_on_new_thread)
+                th_enc.start()
+                th_enc.join(120)
+            torch.cuda.synchronize()
+        finally:
+            server.shutdown()
+            server.server_close()
+            handler.close()
+            th.join(30)
+        serve_launches = launch_counts()
+        for i, r in enumerate(results):
+            check(r is not None and r[0]["status"] == "COMPLETED", f"serve prompt {i}: {r}")
+            imgs = [decode_png(base64.b64decode(b)) for b in r[0]["data"]["images"]]
+            check(len(imgs) == 4 and all(im.shape == (64, 64, 3) for im in imgs),
+                  f"serve prompt {i}: images")
+            check(r[0]["data"]["prompt"] == PROMPT, f"serve prompt {i}: {r[0]['data']['prompt']}")
+        check(tuple(images.shape) == (4, 64, 64, 3) and bool(torch.isfinite(images).all()),
+              "serve: sampler images")
+        for name in ("flash_attention_fwd", "fused_moe_fwd"):
+            check(serve_launches[name] > 0, f"serve: {name} was not launched")
+        with torch.no_grad():
+            cpu_emb = load_clip_params(device="cpu", compute_dtype="float32").encode_text(PROMPT)[0]
+        emb_cos = cosine(card_emb, cpu_emb)
+        check(emb_cos >= 0.999, f"serve: text embedding cosine {emb_cos} against the CPU's")
+        lat = [r[1] for r in results]
+        serve_s = time.perf_counter() - t_serve
+        print(f"serve string prompt: latency ms first={lat[0]:.1f} second={lat[1]:.1f}; text "
+              f"tower {encode_ms:.2f} ms on a warm thread, {[round(x, 1) for x in thread_ms]} ms "
+              f"on two fresh threads; text embedding cosine against the CPU float32 tower "
+              f"{emb_cos:.6f}", flush=True)
+
+        # (4) checkpoint I/O
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt_dir, resumed, 2)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"checkpoint_{resumed.step}.pt"))
+        fresh = create_train_state(cfg, device="cuda", seed=SEED + 9)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh, start_epoch = restore_checkpoint(ckpt_dir, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(start_epoch == 3 and compare_states(fresh, resumed)["param_max_abs"] == 0.0,
+              "checkpoint: the restored state differs from the saved one")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"batch": CLI_BATCH, "clip_taps": taps, "step_ms": times, "no_clip_step_ms": plain_times,
+           "whole_3_epoch_step_ms": whole_times, "ms_per_step_clip": clip_ms,
+           "ms_per_step_no_clip": plain_ms, "clip_loss_ms": clip_loss_ms,
+           "clip_share_of_step": clip_loss_ms / clip_ms, "launches": launches,
+           "resume_diff": diff, "two_uninterrupted_runs_diff": spread,
+           "serve_latency_ms": lat, "encode_text_ms": encode_ms,
+           "encode_text_fresh_thread_ms": thread_ms, "text_embedding_cosine": emb_cos,
+           "save_s": save_s,
+           "restore_s": restore_s, "checkpoint_bytes": ckpt_bytes,
+           "wall_s": {"run": run_s, "no_clip": plain_s, "resume": resume_s, "whole": whole_s,
+                      "serve": serve_s}, "card": smi}
+    print(f"checkpoint: save {save_s:.3f} s, restore {restore_s:.3f} s, {ckpt_bytes} bytes",
+          flush=True)
+    print("cli " + json.dumps(row), flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU")
@@ -1526,6 +1830,8 @@ def main() -> None:
     opt_launches, ln_fwd_rows, ln_bwd_rows, legacy_rows = opt_in_phase(dev, smi, cfg, state_dict)
     for name in OPT_IN_KERNELS:
         launches[name] = opt_launches[name]
+    torch.cuda.empty_cache()
+    cli_launches = cli_phase(smi)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -1608,6 +1914,8 @@ def main() -> None:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": total(rows, "library_ms") if lib else None,
             "shapes": shapes,
+            # the launches of phase 11's default CLI run (4 steps, 2 validation batches)
+            "cli_launches": cli_launches[name],
             **extra.get(name, {}),
         })
     print(smi, flush=True)

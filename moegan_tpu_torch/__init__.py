@@ -2,10 +2,13 @@
 
 `moegan_tpu/` (JAX, Pallas on a TPU) is the reference; this package is its
 counterpart, slice by slice: the 64x64 serving path (`infer/`), the
-training step (`train/step.py`, `train/state.py`), and distributed
-training through the loop (`train/loop.py`, `parallel/`, `data/`), with
-the hand-written CUDA kernels they run (`ops/flash_attention.py`,
-`ops/fused_moe.py`, sources in `ops/csrc/`).
+training step (`train/step.py`, `train/state.py`), distributed training
+through the loop (`train/loop.py`, `parallel/`, `data/`) and the training
+CLI's default run (`cli/train_model.py`: the CLIP loss of `models/clip.py`
+and `losses/clip_loss.py`, checkpoints and msgpack generator files in
+`utils/`), with the hand-written CUDA kernels they run
+(`ops/flash_attention.py`, `ops/fused_moe.py`, `ops/layernorm.py`, sources
+in `ops/csrc/`).
 
 Nothing here imports JAX or the JAX package. Entry points run on the card
 (`device="cuda"`) unless the caller asks for the CPU; on a CPU tensor each

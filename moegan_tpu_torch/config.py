@@ -109,16 +109,30 @@ class DiscriminatorConfig(_JsonMixin):
 class LossConfig(_JsonMixin):
     """Loss weights (moegan_tpu/config.py:154-192). The port's training step
     runs the defaults (nonsaturating loss, CV balance of the last block) and
-    refuses the others; it has no CLIP loss, so the CLIP fields are left out."""
+    refuses the others. `clip_weights` weighs the multi-level CLIP loss of
+    each RGB tap by its resolution (JSON's string keys become ints);
+    `clip_stop_gradient` computes the CLIP image features without gradient,
+    as the reference does, so the loss is monitored but moves no weight."""
 
     gan_loss: str = "nonsaturating"
     r1_gamma: float = 10.0
     kl_weight: float = 1e-3
     kl_annealing_epochs: int = 5
     balance_weight: float = 0.01
+    clip_weights: Mapping[int, float] = field(
+        default_factory=lambda: {64: 0.1, 32: 0.05, 16: 0.025, 8: 0.0125}
+    )
+    clip_stop_gradient: bool = True
     kl_clamp: float = 50.0
     balance_all_blocks: bool = False
     balance_kind: str = "cv"
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "LossConfig":
+        d = dict(d)
+        if isinstance(d.get("clip_weights"), Mapping):
+            d["clip_weights"] = {int(k): float(v) for k, v in d["clip_weights"].items()}
+        return _from_dict(cls, d)
 
 
 @dataclass(frozen=True)

@@ -14,14 +14,27 @@ The port names its modules after the flax scopes, so a flax path
 Everything else keeps its name, shape and meaning: the stacked MoE
 w1/b1/w2/b2 [E, ...], the router mu/rho/temperature, the attention
 wq..bo ([in, out], used as `x @ w`), `constant` and `mod_kernel`/`mod_bias`.
+
+The same two functions carry the CLIP towers (`models/clip.py`, a tree
+{"image": ..., "text": ...}) and the toy towers (`models/toy_clip.py`):
+their dense kernels are transposed, the patch embedding's and the toy
+convs' HWIO kernels become OIHW, and the fused `qkv` projection stays fused
+([in, 3W] -> [3W, in]); embeddings, `proj`, `text_projection` and
+`logit_scale` keep their layout.
 """
 
 from __future__ import annotations
 
 from typing import Any, Mapping
 
+import re
+
 import numpy as np
 import torch
+
+# Scopes whose 4-D `weight` is a flax `nn.Conv` kernel (`kernel` in the JAX
+# tree); the modulated convs and 1x1 projections call theirs `weight` there too.
+_FLAX_CONV = re.compile(r"^(offset_conv\d*|patch_embed|conv_\d+)$")
 
 
 def flatten_params(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
@@ -40,6 +53,18 @@ def flatten_params(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
     if flat and all(k.startswith("generator/") for k in flat):
         flat = {k[len("generator/"):]: v for k, v in flat.items()}
     return flat
+
+
+def unflatten_params(flat: Mapping[str, Any]) -> dict:
+    """{"a/b/c": v} -> the nested tree {"a": {"b": {"c": v}}}."""
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *scope, leaf = key.split("/")
+        for s in scope:
+            node = node.setdefault(s, {})
+        node[leaf] = v
+    return tree
 
 
 def jax_to_torch(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -70,7 +95,7 @@ def torch_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray
         elif leaf == "weight" and a.ndim == 2:
             leaf, a = "kernel", a.T
         elif leaf == "weight" and a.ndim == 4:
-            if scope and scope[-1].startswith("offset_conv"):
+            if scope and _FLAX_CONV.match(scope[-1]):
                 leaf = "kernel"
             a = a.transpose(2, 3, 1, 0)
         elif leaf == "v" and a.ndim == 4:
@@ -78,7 +103,3 @@ def torch_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray
         out["/".join([*scope, leaf])] = np.ascontiguousarray(a)
     return out
 
-
-def save_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
-    """Write the `.npz` layout the JAX package's `save_generator_params` writes."""
-    np.savez(path, **{f"generator/{k}": v for k, v in torch_to_jax(state_dict).items()})

@@ -4,7 +4,9 @@
 truncation, images clipped to [-1, 1]. z for a seed comes from a CPU
 `torch.Generator`, so it differs from `jax.random`'s z for the same seed; a
 caller that needs the JAX package's images passes z to `sample_raw`.
-String prompts need the CLIP text tower, which a later slice ports.
+String prompts are encoded by the tower pack's text tower (`encode_text`):
+the CLIP towers of `models.clip.load_clip_params` unless another pack (a
+toy pack) is given.
 """
 
 from __future__ import annotations
@@ -16,12 +18,6 @@ from moegan_tpu_torch import resolve_device
 from moegan_tpu_torch.config import GeneratorConfig
 from moegan_tpu_torch.models.generator import AuroraGenerator
 
-CLIP_MISSING = (
-    "string prompts need the CLIP text tower, which is not ported yet (a later "
-    "slice of the port); send the prompt as a 512-float text embedding"
-)
-
-
 def is_string_prompt(prompt) -> bool:
     return isinstance(prompt, str) or (
         isinstance(prompt, (list, tuple)) and len(prompt) > 0 and isinstance(prompt[0], str)
@@ -31,12 +27,26 @@ def is_string_prompt(prompt) -> bool:
 class Sampler:
     """Eval-mode sampling around a generator's weights, on one device."""
 
-    def __init__(self, cfg: GeneratorConfig, state_dict, device="cuda"):
+    def __init__(self, cfg: GeneratorConfig, state_dict, device="cuda", clip_params=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.gen = AuroraGenerator(cfg).eval()
         self.gen.load_state_dict(state_dict)
         self.gen.to(self.device)
+        self.clip_params = clip_params
+
+    @torch.inference_mode()
+    def encode_text(self, prompt) -> torch.Tensor:
+        """Prompt(s) -> [N, 512] float32 text embeddings on the sampler's device
+        (the CLIP towers are loaded at the first call when none were given)."""
+        if self.clip_params is None:
+            from moegan_tpu_torch.models.clip import load_clip_params
+
+            self.clip_params = load_clip_params(device=self.device)
+        towers = self.clip_params
+        if isinstance(towers, dict) and "toy" in towers:
+            towers = towers["toy"]
+        return towers.encode_text(prompt).float()
 
     @torch.inference_mode()
     def sample_raw(self, z, text_emb, psi):
@@ -53,10 +63,11 @@ class Sampler:
     def __call__(self, prompt, num_samples: int = 1, truncation_psi: float = 0.7,
                  seed: int = 0, return_stats: bool = False):
         if is_string_prompt(prompt):
-            raise NotImplementedError(CLIP_MISSING)
-        text_emb = torch.as_tensor(np.asarray(prompt, np.float32)).to(self.device)
-        if text_emb.dim() == 1:
-            text_emb = text_emb[None]
+            text_emb = self.encode_text(prompt)
+        else:
+            text_emb = torch.as_tensor(np.asarray(prompt, np.float32)).to(self.device)
+            if text_emb.dim() == 1:
+                text_emb = text_emb[None]
         if text_emb.shape[0] == 1 and num_samples > 1:
             text_emb = text_emb.expand(num_samples, text_emb.shape[-1])
         z = torch.randn((num_samples, self.cfg.latent_dim),

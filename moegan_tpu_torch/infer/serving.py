@@ -7,10 +7,14 @@ GET /poll?request_id -> {status, data}; GET /metrics; GET /healthz. A
 `MicroBatcher` coalesces up to 4 concurrent requests x 4 samples into one
 generator call (batch 16; a lone request runs at batch 4).
 
+`text` is a prompt string (encoded by the CLIP text tower, loaded at
+startup: `CLIP_WEIGHTS_PATH`'s converted `.npz`, else the random init) or a
+512-float embedding. The model directory holds the JAX package's
+`aurora_model_final.msgpack` (or another `.msgpack` or `.npz` generator).
+
 Differences from the JAX package, by design of this slice:
-- `text` must be a 512-float embedding. String prompts need the CLIP tower
-  and `calculate_fid` (and /image-metrics) needs Inception; both are later
-  slices, and such a request fails with an error that says so.
+- `calculate_fid` (and /image-metrics) needs Inception, a later slice; such
+  a request fails with an error that says so.
 - z for a seed comes from a `torch.Generator`, not `jax.random`, so the
   same seed gives other images than the JAX server.
 - PNGs are written with the standard library (`infer/png.py`).
@@ -36,9 +40,7 @@ import torch
 
 from moegan_tpu_torch.config import GeneratorConfig
 from moegan_tpu_torch.infer.png import encode_png
-from moegan_tpu_torch.infer.sample import (
-    CLIP_MISSING, Sampler, expert_utilization_stats, is_string_prompt,
-)
+from moegan_tpu_torch.infer.sample import Sampler, expert_utilization_stats, is_string_prompt
 
 MAX_NUM_SAMPLES = 4
 FID_MISSING = (
@@ -67,7 +69,8 @@ def find_model_file(model_dir: str) -> Optional[str]:
     (moegan_tpu/infer/serving.py::find_model_file): `aurora_model_final.msgpack`
     at the top, then the first `.msgpack` or `.npz` of a top-down walk (files
     sorted within each directory), then an orbax step directory (`default` or
-    all digits). The port reads only `.npz` (`load_generator_params`)."""
+    all digits). The port reads `.msgpack` and `.npz`, not orbax directories
+    (`utils.checkpoint.load_generator_params`)."""
     canonical = os.path.join(model_dir, "aurora_model_final.msgpack")
     if os.path.exists(canonical):
         return canonical
@@ -218,10 +221,14 @@ class InferenceHandler:
         self.batcher = batcher
 
     @classmethod
-    def from_model_dir(cls, model_dir: str, device="cuda") -> "InferenceHandler":
-        """Load the `.npz` generator under model_dir (architecture from a
-        `generator_config.json` beside it, else from the param shapes)."""
+    def from_model_dir(cls, model_dir: str, device="cuda",
+                       clip_params=None) -> "InferenceHandler":
+        """Load the generator under model_dir (architecture from a
+        `generator_config.json` beside it, else from the param shapes) and the
+        tower pack that encodes string prompts (`clip_params`, default the CLIP
+        towers of `models.clip.load_clip_params`)."""
         from moegan_tpu_torch.convert import jax_to_torch
+        from moegan_tpu_torch.models.clip import load_clip_params
         from moegan_tpu_torch.utils.checkpoint import infer_generator_config, load_generator_params
 
         path = find_model_file(model_dir)
@@ -234,27 +241,30 @@ class InferenceHandler:
                 cfg = GeneratorConfig.from_dict(json.load(f))
         else:
             cfg = infer_generator_config(flat)
-        sampler = Sampler(cfg, jax_to_torch(flat), device=device)
+        if clip_params is None:
+            clip_params = load_clip_params(device=device)
+        sampler = Sampler(cfg, jax_to_torch(flat), device=device, clip_params=clip_params)
         return cls(sampler, MicroBatcher(sampler))
 
     def close(self) -> None:
         self.batcher.close()
 
     def transform_fn(self, request: dict) -> dict:
-        """{text (512-float embedding), num_samples, truncation_psi, seed?} ->
-        {images, prompt, expert_utilization}."""
+        """{text (a prompt or a 512-float embedding), num_samples, truncation_psi,
+        seed?} -> {images, prompt, expert_utilization}."""
         text = request.get("text", "")
         if text is None or (not isinstance(text, (list, tuple, np.ndarray)) and not text):
             raise ValueError("request must include 'text'")
-        if is_string_prompt(text):
-            raise NotImplementedError(CLIP_MISSING)
         if request.get("calculate_fid"):
             raise NotImplementedError(FID_MISSING)
         num_samples = min(int(request.get("num_samples", 1)), MAX_NUM_SAMPLES)
         psi = float(request.get("truncation_psi", 0.7))
         raw_seed = request.get("seed")
         seed = int(raw_seed) if raw_seed is not None else next_default_seed()
-        emb = np.asarray(text, np.float32).reshape(-1)
+        if is_string_prompt(text):  # a list of prompts serves its first, as in JAX
+            emb = self.sampler.encode_text(text)[0].cpu().numpy()
+        else:
+            emb = np.asarray(text, np.float32).reshape(-1)
 
         ev, box = self.batcher.submit(emb, psi, seed)
         if not ev.wait(timeout=120.0):
@@ -263,7 +273,7 @@ class InferenceHandler:
             raise RuntimeError(box["error"])
         return {
             "images": images_to_b64_pngs(box["images"][:num_samples]),
-            "prompt": emb.tolist(),
+            "prompt": text if is_string_prompt(text) else emb.tolist(),
             "expert_utilization": expert_utilization_stats(box["routing"]),
         }
 

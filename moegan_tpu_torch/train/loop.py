@@ -10,8 +10,17 @@ which stops training early by returning False.
 The loop is distributed when `distributed` is set and the process group
 (initialised by the caller, or from `torchrun`'s environment) has more than
 one rank: `parallel.api.setup_distributed_training` lays the ranks out as
-cfg.mesh says. Checkpoints (save_dir, resume), progressive training
-(transfer_from) and the CLIP loss (clip_params) are not ported yet.
+cfg.mesh says.
+
+With a tower pack `clip_params` (`models.clip.load_clip_params`, or a toy
+pack) every step adds the multi-level CLIP loss and validation reports
+`val_clip_loss*`. With `save_dir` the whole state is saved after every
+epoch (`utils.checkpoint.save_checkpoint`, the newest three kept); with
+`resume` the newest checkpoint there is restored and training continues at
+the epoch after it. Since the noise of a step is seeded by (cfg.seed, step)
+and the data order of an epoch by cfg.seed + epoch, a resumed run draws
+what the uninterrupted run would. Progressive training (transfer_from) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from moegan_tpu_torch.losses.gan import kl_annealing_factor, temperature_factor
 from moegan_tpu_torch.parallel.api import setup_distributed_training
 from moegan_tpu_torch.train.state import TrainState, create_train_state, sharded_mask
 from moegan_tpu_torch.train.step import make_eval_step, make_train_step
+from moegan_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from moegan_tpu_torch.utils.metrics import EMAMeter, MetricLogger
 from moegan_tpu_torch.utils.profiling import MemoryMonitor
 
@@ -51,13 +61,9 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", 1))
 
 
-def _not_ported(**options) -> None:
-    waits = {"save_dir": "checkpoints", "resume": "checkpoints",
-             "transfer_from": "progressive training", "clip_params": "the CLIP loss"}
-    given = [k for k, v in options.items() if v]
-    if given:
-        raise NotImplementedError(", ".join(f"{k} (waits for the port of {waits[k]})"
-                                            for k in given))
+def _not_ported(transfer_from) -> None:
+    if transfer_from is not None:
+        raise NotImplementedError("transfer_from (waits for the port of progressive training)")
 
 
 def train_aurora_gan(
@@ -81,8 +87,7 @@ def train_aurora_gan(
     distributed); pass "cpu" for the plain versions. `backend` is the
     process group's when this call initialises it (default "nccl").
     """
-    _not_ported(save_dir=save_dir, resume=resume, transfer_from=transfer_from,
-                clip_params=clip_params)
+    _not_ported(transfer_from)
     log = logger or MetricLogger()
     loader = BatchLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed)
     steps_per_epoch = cfg.steps_per_epoch or loader.steps_per_epoch
@@ -97,12 +102,18 @@ def train_aurora_gan(
     dev = state.generator.constant.device
     eval_fn = make_eval_step(cfg)
 
+    start_epoch = 0
+    if resume and save_dir:
+        state, start_epoch = restore_checkpoint(save_dir, state)
+        if start_epoch:
+            log.log_line(f"Resumed from {save_dir} at epoch {start_epoch}")
+
     log.log_line(f"Generator parameters: {count_params(state.generator, mesh):,} | "
                  f"Discriminator parameters: {count_params(state.discriminator, mesh):,}")
     mem = MemoryMonitor(interval=max(cfg.log_interval, 1) * 10, device=dev)
     ema = EMAMeter(0.9)
     step = state.step
-    for epoch in range(cfg.num_epochs):
+    for epoch in range(start_epoch, cfg.num_epochs):
         eff_kl_w = cfg.loss.kl_weight * kl_annealing_factor(epoch, cfg.loss.kl_annealing_epochs)
         temp = temperature_factor(epoch)
         schedule = {"temperature_factor": temp, "effective_kl_weight": eff_kl_w}
@@ -113,7 +124,7 @@ def train_aurora_gan(
         n_imgs = 0
         last_metrics = None
         for batch in prefetch_to_device(loader.epoch(epoch), dev, mesh=mesh):
-            state, metrics = step_fn(state, batch, schedule,
+            state, metrics = step_fn(state, batch, schedule, clip_params=clip_params,
                                      generator=noise_generator(dev, cfg.seed, step))
             last_metrics = metrics
             n_imgs += cfg.batch_size
@@ -154,7 +165,7 @@ def train_aurora_gan(
             for i, vbatch in enumerate(vbatches):
                 # The eval stream counts down from the top of the 32-bit
                 # index space, apart from the training steps' (step >= 0).
-                vm = eval_fn(state, vbatch, schedule,
+                vm = eval_fn(state, vbatch, schedule, clip_params=clip_params,
                              generator=noise_generator(dev, cfg.seed, 0xFFFF_FFFF - i))
                 n_val += val_bs
                 for k, v in vm.items():
@@ -164,4 +175,7 @@ def train_aurora_gan(
             if metric_callback is not None and not metric_callback(epoch, val_metrics):
                 log.log_line("Early stopping triggered by metric callback")
                 break
+
+        if save_dir:
+            save_checkpoint(save_dir, state, epoch)
     return state

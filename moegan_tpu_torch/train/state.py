@@ -28,6 +28,11 @@ parameters. The update must still see the global gradient: the squared
 norm of the expert-sharded part is summed over the expert group before
 the clip, and the non-finite flag over the whole world, so that all ranks
 skip or apply an update together.
+
+For checkpoints, `state_payload` turns the state into whole (unsharded)
+tensors by parameter name, AdamW's moments per parameter instead of flat
+buffers, and `load_state_payload` turns such a payload back into this
+rank's state under any layout.
 """
 
 from __future__ import annotations
@@ -42,7 +47,12 @@ from moegan_tpu_torch.config import TrainConfig
 from moegan_tpu_torch.models.discriminator import AuroraDiscriminator
 from moegan_tpu_torch.models.generator import AuroraGenerator
 from moegan_tpu_torch.parallel.mesh import Mesh
-from moegan_tpu_torch.parallel.sharding import param_sharding_rules, shard_module_
+from moegan_tpu_torch.parallel.sharding import (
+    expert_slice,
+    gather_full,
+    param_sharding_rules,
+    shard_module_,
+)
 
 MAX_CONSECUTIVE_ERRORS = 100
 
@@ -152,3 +162,67 @@ def create_train_state(cfg: TrainConfig, device="cuda", seed: int | None = None,
         shard_module_(g, mesh)
     g, d = g.to(dev), d.to(dev)
     return TrainState(0, g, d, init_adamw(g.parameters()), init_adamw(d.parameters()), mesh)
+
+
+def _per_parameter(flat: torch.Tensor, module: torch.nn.Module) -> dict:
+    """{name: view of `flat` shaped as the parameter}, in `module.parameters()` order."""
+    named = list(module.named_parameters())
+    return {n: v.view_as(p) for v, (n, p) in zip(flat.split([p.numel() for _, p in named]),
+                                                 named)}
+
+
+def _nets(state: TrainState):
+    return (("generator", "optimizer_g", state.generator, state.g_opt),
+            ("discriminator", "optimizer_d", state.discriminator, state.d_opt))
+
+
+def state_payload(state: TrainState, epoch: int) -> dict:
+    """The whole training state on the CPU: {"step", "epoch", "generator" and
+    "discriminator": {name: tensor}, "optimizer_g" and "optimizer_d": {"count",
+    "notfinite_count", "mu" and "nu": {name: tensor}}}. Under a mesh the
+    expert-sharded tensors are gathered, so every rank must call it."""
+
+    def whole(named: dict) -> dict:
+        if state.mesh is not None:
+            named = gather_full(named, state.mesh)
+        return {k: v.detach().to("cpu", copy=True) for k, v in named.items()}
+
+    out = {"step": int(state.step), "epoch": int(epoch)}
+    for key, opt_key, module, opt in _nets(state):
+        out[key] = whole(dict(module.named_parameters()))
+        out[opt_key] = {"count": int(opt.count), "notfinite_count": int(opt.notfinite_count),
+                        "mu": whole(_per_parameter(opt.mu, module)),
+                        "nu": whole(_per_parameter(opt.nu, module))}
+    return out
+
+
+@torch.no_grad()
+def load_state_payload(state: TrainState, payload: dict) -> TrainState:
+    """Load a `state_payload` into `state` in place, each rank keeping its slice
+    of the expert-sharded tensors."""
+    mesh = state.mesh
+
+    def local(name: str, full: torch.Tensor) -> torch.Tensor:
+        if (mesh is not None and mesh.expert_size > 1
+                and param_sharding_rules(name, mesh.expert_axis) is not None):
+            return full[expert_slice(mesh, full.shape[0])]
+        return full
+
+    for key, opt_key, module, opt in _nets(state):
+        params = dict(module.named_parameters())
+        saved = payload[key]
+        if set(saved) != set(params):
+            raise ValueError(f"{key}: the checkpoint's parameters differ from the model's: "
+                             f"missing {sorted(set(params) - set(saved))}, unexpected "
+                             f"{sorted(set(saved) - set(params))}")
+        for name, p in params.items():
+            p.copy_(local(name, saved[name]))
+        dev = next(iter(params.values())).device
+        moments = payload[opt_key]
+        opt.mu, opt.nu = (torch.cat([local(n, moments[m][n]).reshape(-1) for n in params])
+                          .to(dev, torch.float32) for m in ("mu", "nu"))
+        opt.count = torch.tensor(moments["count"], dtype=torch.int32, device=dev)
+        opt.notfinite_count = torch.tensor(moments["notfinite_count"], dtype=torch.int32,
+                                           device=dev)
+    state.step = int(payload["step"])
+    return state

@@ -5,9 +5,9 @@ D phase: real logits and the R1 penalty from one double-backward, the fake
 from a no-grad generator forward with its own router noise, the
 shuffled-text logits, then the D update. G phase: a fresh generator forward
 with other router noise, D's logits on it with the updated D, the
-nonsaturating loss + the last block's CV balance + the annealed, clamped
-router KL, then the G update. No CLIP loss: this is the JAX step's
-`with_clip=False`.
+nonsaturating loss + the weighted multi-level CLIP loss (when the step is
+given a tower pack, `clip_params`) + the last block's CV balance + the
+annealed, clamped router KL, then the G update.
 
 The step runs where the state lives: the kernels on the card, their plain
 versions on the CPU.
@@ -32,6 +32,7 @@ import functools
 import torch
 
 from moegan_tpu_torch.config import TrainConfig
+from moegan_tpu_torch.losses.clip_loss import multi_level_clip_loss
 from moegan_tpu_torch.losses.gan import (
     discriminator_loss,
     expert_top1_per_block,
@@ -51,7 +52,7 @@ from moegan_tpu_torch.train.schedules import warmup_cosine
 from moegan_tpu_torch.train.state import TrainState, clipped_adamw_update, sharded_mask
 
 
-def _check_supported(cfg: TrainConfig) -> None:
+def check_supported(cfg: TrainConfig) -> None:
     lc = cfg.loss
     unsupported = [name for name, off_default in (
         (f"gan_loss={lc.gan_loss!r}", lc.gan_loss != "nonsaturating"),
@@ -112,7 +113,8 @@ def _mean_metrics(metrics: dict, mesh) -> dict:
 
 
 def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
-    """step(state, batch, schedule, noise=None, generator=None) -> (state, metrics).
+    """step(state, batch, schedule, noise=None, generator=None, clip_params=None)
+    -> (state, metrics).
 
     batch = {"image": [B, R, R, 3] in [-1, 1], "text": [B, 512]}, the
     global batch (under a mesh also this rank's `ShardedBatch`); schedule =
@@ -120,9 +122,12 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
     the host, `losses.gan`); noise as `draw_noise` gives it for the global
     batch, or None to draw it from `generator`. The state is updated in
     place and returned; the metrics are detached scalars (and [blocks, E]
-    routing statistics) on the state's device.
+    routing statistics) on the state's device. With a tower pack
+    `clip_params` (`models.clip.CLIP` or {"toy": ...}), the G loss adds
+    cfg.loss.clip_weights[r] * clip_loss_r for every RGB tap r of positive
+    weight (moegan_tpu/train/step.py:135-150), each reported as `clip_loss_{r}`.
     """
-    _check_supported(cfg)
+    check_supported(cfg)
     lcfg = cfg.loss
     lr_fn = functools.partial(
         warmup_cosine, lr=cfg.lr, num_epochs=cfg.num_epochs,
@@ -131,7 +136,7 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
     adamw = functools.partial(clipped_adamw_update, lr_fn=lr_fn, b1=cfg.beta1, b2=cfg.beta2,
                               weight_decay=cfg.weight_decay)
 
-    def step(state: TrainState, batch, schedule, noise=None, generator=None):
+    def step(state: TrainState, batch, schedule, noise=None, generator=None, clip_params=None):
         gen, disc, mesh = state.generator, state.discriminator, state.mesh
         dev = gen.constant.device
         real, text, local, B = _local_inputs(state, batch)
@@ -165,8 +170,18 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
             out = gen(z, text, training=True, annealing_factor=temp, router_eps=noise["eps_g"])
             kl = torch.clamp(out.kl, max=lcfg.kl_clamp)
             g_gan = generator_loss(disc(out.image, text))
+            clip_metrics = {}
+            g_clip = torch.zeros((), device=dev)
+            if clip_params is not None:
+                taps = {r: out.intermediates[r] for r, w in lcfg.clip_weights.items()
+                        if r in out.intermediates and w > 0}
+                for r, cl in multi_level_clip_loss(
+                        clip_params, taps, text,
+                        stop_gradient=lcfg.clip_stop_gradient).items():
+                    clip_metrics[f"clip_loss_{r}"] = cl
+                    g_clip = g_clip + lcfg.clip_weights[r] * cl
             balance = moe_balance_loss(out.routing, lcfg.balance_weight, mesh)
-            g_total = g_gan + balance + eff_kl_w * kl
+            g_total = g_gan + g_clip + balance + eff_kl_w * kl
             # norm2 and the cross-attention's q/k weights feed nothing (one text
             # token): their gradients are zero, as in the JAX package.
             g_grads = data_mean(torch.autograd.grad(g_total, g_params, allow_unused=True,
@@ -178,15 +193,15 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
         metrics = dict(d_loss=d_gan, r1_loss=r1, d_total=d_total, g_total=g_total, g_loss=g_gan,
                        kl_loss=kl, balance_loss=balance,
                        expert_util=expert_utilization_per_block(out.routing, mesh),
-                       expert_top1=expert_top1_per_block(out.routing, mesh))
+                       expert_top1=expert_top1_per_block(out.routing, mesh), **clip_metrics)
         return state, _mean_metrics(metrics, mesh)
 
     return step
 
 
 def make_eval_step(cfg: TrainConfig):
-    """eval_fn(state, batch, schedule, generator=None, noise=None) ->
-    {"val_d_loss", "val_g_loss"} (moegan_tpu/train/step.py:199-249, with_clip=False).
+    """eval_fn(state, batch, schedule, generator=None, noise=None, clip_params=None)
+    -> {"val_d_loss", "val_g_loss"} (moegan_tpu/train/step.py:199-249).
 
     G at eval (mean router weights, hard routing: under an expert axis the
     combine kernel takes one-hot probs), D on the real images, the fake and
@@ -194,13 +209,16 @@ def make_eval_step(cfg: TrainConfig):
     latent], "perm": [B]} for the global batch, is given or drawn (z, then
     the shuffle) from `generator`, the caller's stream apart from the
     training steps'. Under a mesh the batch is as in the training step and
-    the losses are averaged over the data group.
+    the losses are averaged over the data group. With a tower pack
+    `clip_params`, `val_clip_loss_{r}` for every RGB tap r that cfg.loss.clip_weights
+    names, and `val_clip_loss`, the top resolution's (the HPO objective).
     """
-    _check_supported(cfg)
+    check_supported(cfg)
     lcfg = cfg.loss
 
     @torch.no_grad()
-    def eval_fn(state: TrainState, batch, schedule, generator=None, noise=None):
+    def eval_fn(state: TrainState, batch, schedule, generator=None, noise=None,
+                clip_params=None):
         gen, disc, mesh = state.generator, state.discriminator, state.mesh
         dev = gen.constant.device
         real, text, local, B = _local_inputs(state, batch)
@@ -222,6 +240,13 @@ def make_eval_step(cfg: TrainConfig):
             "val_g_loss": generator_loss(fake_pred) + schedule["effective_kl_weight"]
             * torch.clamp(out.kl, max=lcfg.kl_clamp),
         }
+        if clip_params is not None:
+            taps = {r: x for r, x in out.intermediates.items() if r in lcfg.clip_weights}
+            for r, cl in multi_level_clip_loss(clip_params, taps, text).items():
+                metrics[f"val_clip_loss_{r}"] = cl
+            top = f"val_clip_loss_{max(out.intermediates)}"
+            if top in metrics:
+                metrics["val_clip_loss"] = metrics[top]
         return _mean_metrics(metrics, mesh)
 
     return eval_fn

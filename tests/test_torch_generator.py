@@ -17,6 +17,7 @@ from moegan_tpu.models.generator import AuroraGenerator as JaxGenerator
 from moegan_tpu_torch.config import GeneratorConfig
 from moegan_tpu_torch.infer.sample import Sampler
 from moegan_tpu_torch.models.generator import AuroraGenerator
+from moegan_tpu_torch.models.toy_clip import as_tower_pack, init_toy_params
 from tests.torch_helpers import TINY_KW, decisive_router, jax_variables, randn, t
 
 
@@ -95,5 +96,9 @@ def test_sampler_call_shapes_and_range():
     assert imgs.shape == (3, 16, 16, 3) and imgs.abs().max() <= 1.0
     assert set(stats) == {"block_0", "block_1", "block_2"}
     assert abs(sum(stats["block_2"]["top1_fraction"]) - 1.0) < 1e-6
-    with pytest.raises(NotImplementedError, match="CLIP"):
-        s("a red bird")
+    # a string prompt goes through the tower pack's text tower (here the toy pack)
+    s.clip_params = as_tower_pack(init_toy_params())
+    emb = s.encode_text("a red bird")
+    assert emb.shape == (1, 512)
+    torch.testing.assert_close(s("a red bird", num_samples=3, seed=1),
+                               s(emb.numpy(), num_samples=3, seed=1), rtol=0, atol=0)

@@ -2,7 +2,8 @@
 
 A tiny generator is written with the JAX package's `save_generator_params`
 (the `.npz` layout) and its `GeneratorConfig.to_json()`, then served by
-`moegan_tpu_torch.infer.serving` with device="cpu".
+`moegan_tpu_torch.infer.serving` with device="cpu" (string prompts through the
+random-init CLIP text tower that `from_model_dir` loads).
 """
 
 import base64
@@ -26,11 +27,12 @@ from moegan_tpu.utils.checkpoint import infer_generator_config as jax_infer_conf
 from moegan_tpu.utils.checkpoint import load_generator_params as jax_load_params
 from moegan_tpu.utils.checkpoint import save_generator_params
 from moegan_tpu_torch.config import GeneratorConfig
-from moegan_tpu_torch.convert import save_npz, torch_to_jax
+from moegan_tpu_torch.convert import torch_to_jax
 from moegan_tpu_torch.infer import serving
 from moegan_tpu_torch.infer.png import decode_png, encode_png
 from moegan_tpu_torch.models.generator import AuroraGenerator
 from moegan_tpu_torch.utils.checkpoint import infer_generator_config, load_generator_params
+from moegan_tpu_torch.utils.checkpoint import save_generator_params as port_save_params
 from tests.torch_helpers import TINY_KW, decisive_router, jax_variables, randn
 
 EMB = randn(200, 512)
@@ -129,8 +131,14 @@ def test_http_round_trip_and_missing_slices(handler):
         job = _poll(base, _post(f"{base}/generate", {"text": EMB.tolist(), "num_samples": 2})["request_id"])
         assert job["status"] == "COMPLETED"
         assert _pixels(job["data"]["images"]).shape == (2, 16, 16, 3)
-        job = _poll(base, _post(f"{base}/generate", {"text": "a red bird"})["request_id"])
-        assert job["status"] == "FAILED" and "CLIP" in job["data"]["error"]
+        job = _poll(base, _post(f"{base}/generate", {"text": "a red bird", "num_samples": 3,
+                                                     "seed": 4})["request_id"])
+        assert job["status"] == "COMPLETED" and job["data"]["prompt"] == "a red bird"
+        # the prompt's embedding is the CLIP text tower's, served as an embedding would be
+        emb = handler.sampler.encode_text("a red bird")[0].numpy()
+        assert emb.shape == (512,) and np.isfinite(emb).all()
+        direct = handler.transform_fn({"text": emb.tolist(), "num_samples": 3, "seed": 4})
+        assert job["data"]["images"] == direct["images"]
         job = _poll(base, _post(f"{base}/image-metrics", {"text": EMB.tolist()})["request_id"])
         assert job["status"] == "FAILED" and "Inception" in job["data"]["error"]
         with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
@@ -160,8 +168,8 @@ def test_checkpoint_config_and_lookup(model_dir, tmp_path):
     cfg = GeneratorConfig.from_dict(json.loads(jcfg.to_json()))  # JAX-only keys skipped
     assert cfg == GeneratorConfig(compute_dtype="float32", **TINY_KW)
     assert serving.find_model_file(str(d)) == str(d / "gen.npz")
-    (tmp_path / "m.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    (tmp_path / "m.msgpack").write_bytes(b"")  # msgpack is read now: an empty file is cut short
+    with pytest.raises(ValueError, match="truncated"):
         load_generator_params(serving.find_model_file(str(tmp_path)))
 
 
@@ -183,14 +191,17 @@ def test_find_model_file_matches_jax(tmp_path, layout):
     want = jax_find_model_file(str(tmp_path))
     got = serving.find_model_file(str(tmp_path))
     assert want is not None and os.path.relpath(got, tmp_path) == os.path.relpath(want, tmp_path)
-    if got.endswith(".msgpack") or os.path.isdir(got):
-        with pytest.raises(NotImplementedError):  # not read by the port yet
+    if os.path.isdir(got):
+        with pytest.raises(NotImplementedError, match="orbax"):  # not read by the port
+            load_generator_params(got)
+    elif got.endswith(".msgpack"):
+        with pytest.raises(ValueError, match="truncated"):  # read, and found empty
             load_generator_params(got)
 
 
 def test_save_npz_reads_back_in_both_packages(tmp_path):
     sd = AuroraGenerator(GeneratorConfig(**TINY_KW)).state_dict()
-    save_npz(str(tmp_path / "g.npz"), sd)
+    port_save_params(str(tmp_path / "g.npz"), sd)
     want = torch_to_jax(sd)
     theirs = jax_load_params(str(tmp_path / "g.npz"))  # unwraps `generator/`
     for k, v in want.items():
@@ -205,11 +216,11 @@ def test_save_npz_reads_back_in_both_packages(tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port (the training and distributed slices' included),
     chip_smoke.py, the port's profile scripts and the helper module that the
-    distributed tests spawn their ranks from import with jax, flax and
-    moegan_tpu blocked."""
+    distributed tests spawn their ranks from import with jax, flax, optax,
+    msgpack, orbax and moegan_tpu blocked."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'moegan_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'orbax', 'moegan_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import moegan_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'moegan_tpu_torch.')]\n"
@@ -234,6 +245,10 @@ def test_port_imports_no_jax():
             "moegan_tpu_torch.parallel.sharding", "moegan_tpu_torch.train.loop",
             "moegan_tpu_torch.data.datasets", "moegan_tpu_torch.data.loader",
             "moegan_tpu_torch.utils.metrics", "moegan_tpu_torch.utils.profiling"} <= names
+    assert {"moegan_tpu_torch.utils.msgpack", "moegan_tpu_torch.utils.checkpoint",
+            "moegan_tpu_torch.models.bpe", "moegan_tpu_torch.models.clip",
+            "moegan_tpu_torch.models.toy_clip", "moegan_tpu_torch.losses.clip_loss",
+            "moegan_tpu_torch.cli.train_model"} <= names
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -242,3 +242,45 @@ def train_loop(rank, world_size, cfg_dict, n_train, n_val, stop_after_epoch):
     state, log, seen = run_loop(cfg_dict, n_train, n_val, stop_after_epoch, True)
     return dict(mesh=info, params=full_state(state), lines=log.lines, metrics=log.metrics,
                 seen=seen, steps=state.step)
+
+
+def adam_moments(state) -> dict:
+    """{"g" | "d": {"mu" | "nu": {name: ndarray}}} of the whole (unsharded) moments."""
+    from moegan_tpu_torch.parallel.sharding import gather_full
+
+    out = {}
+    for key, module, opt in (("g", state.generator, state.g_opt),
+                             ("d", state.discriminator, state.d_opt)):
+        out[key] = {}
+        for m in ("mu", "nu"):
+            named = _named_views(getattr(opt, m), module)
+            out[key][m] = {k: _np(v) for k, v in
+                           (gather_full(named, state.mesh) if state.mesh else named).items()}
+        out[key]["count"] = int(opt.count)
+    return out
+
+
+def resume_loop(rank, world_size, cfg_dict, n_train, n_val, interrupted_dir, whole_dir,
+                distributed=True):
+    """`train_aurora_gan` for 2 epochs saving to `interrupted_dir`, then resumed from
+    there for a third, beside an uninterrupted 3-epoch run saving to `whole_dir`.
+    Returns the whole parameters, Adam's moments and the step of both runs."""
+    from moegan_tpu_torch.config import TrainConfig
+    from moegan_tpu_torch.data.datasets import synthetic_dataset
+    from moegan_tpu_torch.train.loop import train_aurora_gan
+
+    cfg = TrainConfig.from_dict(cfg_dict)
+    res = cfg.generator.max_resolution
+    train = synthetic_dataset(n_train, res, seed=1)
+    val = synthetic_dataset(n_val, res, seed=2)
+    out = {}
+    runs = (("whole", 3, whole_dir, False), ("first", 2, interrupted_dir, False),
+            ("resumed", 3, interrupted_dir, True))
+    for name, epochs, save_dir, resume in runs:
+        log = ListLogger()
+        state = train_aurora_gan(train, val, cfg=cfg.replace(num_epochs=epochs),
+                                 save_dir=save_dir, resume=resume, distributed=distributed,
+                                 device="cpu", logger=log)
+        out[name] = dict(params=full_state(state), moments=adam_moments(state), step=state.step,
+                         lines=log.lines)
+    return out
