@@ -377,10 +377,7 @@ moe_bwd_token_kernel(const bf16* __restrict__ x, const float* __restrict__ probs
 // and g^T for its 16 tokens over the whole K = C, keeps dz and p*h in
 // registers as its A fragments, and sums all C columns over its tokens (CP
 // registers a thread); the two warps' sums are added in order at the end.
-struct WTile {
-  static constexpr int FW = 64, MF = FW / 16, NW = 8, NT = 32 * NW, KS = NW / MF;
-  static constexpr int BTK = 16 * KS;
-};
+// Its shape is moe_tiles.cuh's WTile.
 
 // W1 slice [CP][FW], W2 slice [FW][CP], two stages of x and dout [BTK][CP]
 // (bf16); two stages of p_e [BTK] and the db1 sums [NT] (fp32). The
@@ -563,95 +560,24 @@ moe_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
   }
 
   // db1: each warp's quad sums, added over the token groups in order.
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    db1r[half] += __shfl_xor_sync(0xffffffffu, db1r[half], 1);
-    db1r[half] += __shfl_xor_sync(0xffffffffu, db1r[half], 2);
-  }
-  if (tq == 0) {  // hidden units mw * 16 + g (+ 8), token group kw
-    sRed[kw * FW + mw * 16 + g] = db1r[0];
-    sRed[kw * FW + mw * 16 + g + 8] = db1r[1];
-  }
-  __syncthreads();
-  if (tid < FW && f0 + tid < F) {
-    float sum = 0.f;
-    for (int k = 0; k < W::KS; ++k) sum += sRed[k * FW + tid];
-    db1[(long long)s * E * F + (long long)e * F + f0 + tid] = sum;
-  }
+  wtile_unit_sums(db1r, sRed, db1 + (long long)s * E * F + (long long)e * F, f0, F);
   if (with_db2 && tid < C) db2[(long long)s * E * C + (long long)e * C + tid] = db2r;
 }
 
 // The scratch route's weight gradients (CP >= 128): dW1^T = bf16(dz)^T x and
 // dW2 = bf16(p h)^T dout over a T range, from A [T, M = E*F] (the token
 // kernel's scratch) and B [T, N = C], both bf16. Block (m-tile, n-tile; T
-// range, product) keeps a [GBM, GBN] fp32 tile in registers (8 warps of
-// 32 x 64, 64 a thread) while it walks its tokens GBK at a time, A and B
-// double-buffered by cp.async; A^T's fragments come by ldmatrix.trans.
-constexpr int GBM = 128, GBN = 128, GBK = 32;
-
+// range, product) forms one [GBM, GBN] tile by moe_tiles.cuh's
+// wgrad_gemm_tile.
 __global__ void __launch_bounds__(256)
 moe_wgrad_gemm_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ ph,
                       const bf16* __restrict__ x, const bf16* __restrict__ dout,
                       float* __restrict__ dw1t, float* __restrict__ dw2, int T, int M, int N,
                       int tchunk) {
-  __shared__ __align__(128) bf16 sA[2][GBK * pitch(GBM)];
-  __shared__ __align__(128) bf16 sB[2][GBK * pitch(GBN)];
   const int which = blockIdx.y & 1, s = blockIdx.y >> 1;
-  const bf16* A = which ? ph : dz;
-  const bf16* B = which ? dout : x;
-  float* out = (which ? dw2 : dw1t) + (long long)s * M * N;
-  const int ntn = (N + GBN - 1) / GBN;
-  const int m0 = (blockIdx.x / ntn) * GBM, n0 = (blockIdx.x % ntn) * GBN;
   const int tb = s * tchunk, te = min(T, tb + tchunk);
-  const int ntile = te > tb ? (te - tb + GBK - 1) / GBK : 0;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
-  const int wm = (warp % 4) * 32, wn = (warp / 4) * 64;
-
-  auto issue = [&](int j) {
-    stage_tile<GBK, GBM, 256>(sA[j & 1], A, M, tb + j * GBK, te, m0, M);
-    stage_tile<GBK, GBN, 256>(sB[j & 1], B, N, tb + j * GBK, te, n0, N);
-    cp_async_commit();
-  };
-  float acc[2][8][4];
-  zero_tiles(acc[0]);
-  zero_tiles(acc[1]);
-  if (ntile > 0) issue(0);
-  for (int j = 0; j < ntile; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // tile j landed; every warp is done with tile j - 1
-    if (j + 1 < ntile) issue(j + 1);
-#pragma unroll
-    for (int ks = 0; ks < GBK / 16; ++ks) {
-      uint32_t a[2][4];
-      load_at<GBM>(a[0], sA[j & 1], wm, ks * 16);
-      load_at<GBM>(a[1], sA[j & 1], wm + 16, ks * 16);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        load_b<GBN>(b, sB[j & 1], ks * 16, wn + np * 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma(acc[mi][2 * np], a[mi], b[0], b[1]);
-          mma(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + mi * 16 + g + 8 * half;
-      if (m >= M) continue;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int c = n0 + wn + n * 8 + 2 * tq;
-        if (c < N)
-          *reinterpret_cast<float2*>(out + (long long)m * N + c) =
-              make_float2(acc[mi][n][2 * half], acc[mi][n][2 * half + 1]);
-      }
-    }
-  }
+  wgrad_gemm_tile(which ? ph : dz, which ? dout : x,
+                  (which ? dw2 : dw1t) + (long long)s * M * N, M, N, tb, te);
 }
 
 // dst[i] = sum_k src[k * n + i] for k < count, in order, for up to seven

@@ -1,24 +1,80 @@
 // The legacy three-kernel MoE backward for Hopper (sm_90a), behind
-// MOEGAN_PALLAS_MOE_BWD=3.
+// MOEGAN_PALLAS_MOE_BWD=3: three entry points, each computing what one TPU
+// kernel of _fused_moe_bwd_pallas computes, with its rounding points, and
+// reading no other's scratch:
 //
-// Replaces the TPU kernels moegan_tpu/ops/fused_moe.py::_bwd_dx_kernel,
-// ::_bwd_dw2_kernel and ::_bwd_dw1_kernel (launched by _fused_moe_bwd_pallas).
-// The default backward (fused_moe_bwd.cu) does not use this file: its
-// WMMA helpers, router and weight-gradient product serve these three entry
-// points alone.
+//   moegan_moe_bwd_dx  replaces moegan_tpu/ops/fused_moe.py::_bwd_dx_kernel:
+//       dx_ffn = sum_e bf16(dz_e) W1_e^T,  dp[t, e] = <dout_t, h_e W2_e + b2_e>
+//   moegan_moe_bwd_dw2 replaces ::_bwd_dw2_kernel:
+//       dW2_e = h_e^T bf16(p_e dout),      db2_e = sum_t p_e dout
+//   moegan_moe_bwd_dw1 replaces ::_bwd_dw1_kernel:
+//       dW1_e = x^T bf16(dz_e),            db1_e = sum_t dz_e
+//
+// for each token and expert: p the soft routing, z = x W1_e + b1_e (fp32),
+// h = bf16(gelu(z)) (erf by Abramowitz-Stegun 7.1.26 in dx and dW1, as the
+// TPU kernels; erff in dW2), dy_e = bf16(p_e dout), dh = dy_e W2_e^T and
+// dz = dh gelu'(z). dx and dW1 read the routing the caller hands them (the
+// forward's, as FusedMoEFunction passes it; ops/fused_moe.py runs the
+// forward kernel for it when the caller has none), where each TPU kernel
+// recomputes it; dW2 recomputes it with its own router. (The default
+// backward, fused_moe_bwd.cu, rounds p h where these round p dout, so the two
+// backwards differ by bf16 rounding.) dp is computed as sum_f g h + dout .
+// b2_e with g = dout W2_e^T. Every fp32 sum runs in a fixed order and no
+// kernel uses atomics: two calls give the same bits.
+//
+// What bounds dx and dW1 on the H100: their products, 8 (dx: z, g, dh and
+// dz W1^T) and 6 (dW1: z, dh and x^T dz) x T*C*F*E FLOPs (34.4 and 25.8
+// GFLOP a block of the 64x64 generator at batch 64, 0.035 and 0.026 ms at
+// 989 TFLOP/s), and T*E*F GELUs with their derivative (one reciprocal and
+// one ex2 each, shared); at C = 32-64 the ~25 FP32 instructions of each
+// hidden unit outweigh its products. The design, on moe_tiles.cuh's tiles:
+//
+//   - moe_legacy_token_kernel, block (token tile, split) with the fused
+//     backward's warp layout (Tile<CP>): the x and dout tiles stay in shared
+//     memory while the block walks its share of the (expert, 64-unit chunk)
+//     loop; the weight slices are staged ahead by cp.async, double-buffered
+//     up to C = 128. Per chunk, z = x W1-slice, g = dout W2-slice^T and
+//     dh = dy W2-slice^T go by mma.sync into register fragments; g and dh
+//     share each ldmatrix of dout and W2, dy's A fragments being dout's
+//     scaled by each row's p_e and rounded to bf16 in registers. gelu_cdf
+//     gives h and gelu'(z) from one ex2. For dx, the dp row sums go by quad
+//     shuffles and bf16 dz is packed as the A operand of dx += dz W1^T,
+//     whose [16, CP / CW] fp32 accumulator stays in registers; with fewer
+//     tiles than SMs the (expert, chunk) loop is split and the partials added
+//     in split order. For dW1's scratch route (C = 512) it writes bf16 dz
+//     [T, E*F] and per-tile fp32 column sums of dz (db1).
+//   - dW1, two routes by padded width. Up to C = 256
+//     moe_dw1_recompute_kernel, block (expert, 64 hidden units, T range),
+//     keeps dW1^T for its units in registers and recomputes z, dh and dz per
+//     stage of tokens: no [T, E*F] scratch (268 MB at res 64). At C = 512,
+//     where [16, C] fp32 sums a warp do not fit in registers, the token
+//     kernel writes bf16 dz [T, E*F] (17 MB there) and moe_dw1_gemm_kernel
+//     forms dW1^T = dz^T x by moe_tiles.cuh's wgrad_gemm_tile (the fused
+//     backward's tiled product). Timed with both routes at every width,
+//     recompute won at each width it takes (PERF.md).
+//   - moe_sum_kernel adds split, T-range and tile partials in order.
+//
+// dW2 keeps its first port (namespace wm below: WMMA fragments through
+// shared memory, synchronous staging, its own router). C <= 512 and F
+// multiples of 16, E at most 16; plans come from ops/fused_moe.py
+// (legacy_plan for dx and dW1) and are checked here.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <mma.h>
-#include <stdint.h>
 
 #include <type_traits>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "moe_tiles.cuh"
 
 namespace {
+
+// --- dW2: the WMMA kernels ---------------------------------------------------------------
+//
+// Kept in their own namespace, so that their helpers do not meet
+// moe_tiles.cuh's of the same names.
+namespace wm {
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
 
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
@@ -239,108 +295,47 @@ int wgrad_chunk(int T, int splits) {
   return (c + WKT - 1) / WKT * WKT;
 }
 
-}  // namespace
-
-// --- The three entry points ----------------------------------------------------------------
-//
-// Each is an entry
-// point of its own, reading no other's scratch, and each recomputes for its
-// token tile the soft routing p, z = x W1_e + b1_e and h = bf16(gelu_erf(z)),
-// as the TPU kernels do. They round where the TPU kernels round:
-// dy_e = bf16(p_e dout) feeds dh = dy_e W2_e^T and dW2_e = h^T dy_e, and
-// dz = dh gelu'(z) is rounded to bf16 before dz W1_e^T and x^T dz; the bias
-// gradients are fp32 sums. (The default backward, fused_moe_bwd.cu, rounds p h
-// instead, so the two backwards differ by bf16 rounding.)
-//
-//   moegan_moe_bwd_dx:  dx_ffn = sum_e bf16(dz_e) W1_e^T,
-//                       dp[t, e] = <dout_t, h_e W2_e + b2_e>
-//   moegan_moe_bwd_dw2: dW2_e = h_e^T dy_e,     db2_e = sum_t p_e dout
-//   moegan_moe_bwd_dw1: dW1_e = x^T bf16(dz_e), db1_e = sum_t dz_e
-//
-// One token kernel, instantiated per entry point (kMode), walks its tile's
-// share of the (expert, F-chunk) loop. For dx it
-// keeps a [BT, C] fp32 accumulator and writes per-split partials of dx and of
-// dp (computed as sum_f g h with g = dout W2^T, plus dout . b2 in split 0),
-// which moe_sum_kernel adds in order. For the weight gradients it writes
-// bf16 scratches (h [T, E*F] and dy [T, E*C] for dW2, dz [T, E*F] for dW1)
-// and per-tile fp32 column sums for the biases; moe_wgrad_kernel then forms
-// x^T dz stacked over the experts, and h_e^T dy_e once per expert (dy_e
-// differs per expert), and moe_sum_kernel adds the tile partials in order.
-// No atomics: two calls give the same bits.
-//
-// What bounds them: the products, 8 (dx: z, g, dh, dz W1^T), 4 (dw2: z,
-// h^T dy) and 6 (dw1: z, dh, x^T dz) x T*C*F*E FLOPs at the bf16 tensor-
-// core rate: 1.8x the fused backward's 10, by the TPU design. Each weight
-// slice is staged synchronously and every WMMA product goes through shared
-// memory; ROADMAP.md queues their redesign.
-
-namespace {
-
-enum LegacyMode { kDx = 0, kDw2 = 1, kDw1 = 2 };
-
-// Shared-memory tiles of the legacy token kernel, rows padded by 16 bytes
-// against bank conflicts in the WMMA fragment loads: x, dout and dy [BT, C]
-// bf16, the W1 [C, FC] and W2 [FC, C] slices, z, g and dh [BT, FC] fp32, dz
-// [BT, FC] bf16, the dx accumulator [BT, C] fp32, p and dp [BT, E] fp32;
-// each mode allocates only what it uses.
-struct LegacyLayout {
-  int ldx, ldw1, ldw2, ldz, ldh, ldacc;
-  size_t x, dout, dy, w1, w2, z, g, dh, h, acc, p, dp, total;
-  __host__ __device__ LegacyLayout(int mode, int BT, int FC, int C, int E) {
-    const bool dx = mode == kDx, with_dh = mode != kDw2;
+// Shared-memory tiles of dW2's token kernel, rows padded by 16 bytes against
+// bank conflicts in the WMMA fragment loads: x and dout [BT, C] bf16, the W1
+// [C, FC] slice, z [BT, FC] fp32 and p [BT, E] fp32.
+struct Dw2Layout {
+  int ldx, ldw1, ldz;
+  size_t x, dout, w1, z, p, total;
+  __host__ __device__ Dw2Layout(int BT, int FC, int C, int E) {
     ldx = C + 8;
     ldw1 = FC + 8;
-    ldw2 = C + 8;
     ldz = FC + 4;
-    ldh = FC + 8;
-    ldacc = C + 4;
     size_t off = 0;
     x = off; off += align128(sizeof(bf16) * BT * ldx);
     dout = off; off += align128(sizeof(bf16) * BT * ldx);
-    dy = off; if (with_dh) off += align128(sizeof(bf16) * BT * ldx);
     w1 = off; off += align128(sizeof(bf16) * C * ldw1);
-    w2 = off; if (with_dh) off += align128(sizeof(bf16) * FC * ldw2);
     z = off; off += align128(sizeof(float) * BT * ldz);
-    g = off; if (dx) off += align128(sizeof(float) * BT * ldz);
-    dh = off; if (with_dh) off += align128(sizeof(float) * BT * ldz);
-    h = off; if (dx) off += align128(sizeof(bf16) * BT * ldh);
-    acc = off; if (dx) off += align128(sizeof(float) * BT * ldacc);
     p = off; off += align128(sizeof(float) * BT * E);
-    dp = off; if (dx) off += align128(sizeof(float) * BT * E);
     total = off;
   }
 };
 
-// Outputs by mode: kDx: ws_dx [splits, T, C] and ws_dp [splits, T, E] fp32
-// partials. kDw2: sc_f = h [T, E*F], sc_dy = dy [T, E*C] (bf16), part_bias =
-// [ntiles, E*C] column sums of p dout. kDw1: sc_f = dz [T, E*F] (bf16),
-// part_bias = [ntiles, E*F] column sums of dz. Pointers a mode does not use
-// may be null.
-template <int kMode>
+// dW2's token kernel: for its tile's share of the (expert, F-chunk) loop it
+// recomputes the soft routing p, z = x W1_e + b1_e and h = bf16(gelu_erf(z)),
+// and writes h [T, E*F] and dy = bf16(p_e dout) [T, E*C] (bf16 scratches)
+// and part_bias = [ntiles, E*C] column sums of p dout; moe_wgrad_kernel then
+// forms h_e^T dy_e once per expert and moe_sum_kernel adds the tile
+// partials in order.
 __global__ void __launch_bounds__(NTHREADS)
-moe_legacy_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
-                        const float* __restrict__ cw, const float* __restrict__ tl,
-                        const float* __restrict__ inv_temp, const bf16* __restrict__ w1,
-                        const float* __restrict__ b1, const bf16* __restrict__ w2,
-                        const float* __restrict__ b2, const bf16* __restrict__ dout,
-                        float* __restrict__ ws_dx, float* __restrict__ ws_dp,
-                        bf16* __restrict__ sc_f, bf16* __restrict__ sc_dy,
-                        float* __restrict__ part_bias, int T, int C, int Hd, int E, int F,
-                        int BT, int FC) {
+moe_dw2_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
+                     const float* __restrict__ cw, const float* __restrict__ tl,
+                     const float* __restrict__ inv_temp, const bf16* __restrict__ w1,
+                     const float* __restrict__ b1, const bf16* __restrict__ dout,
+                     bf16* __restrict__ sc_f, bf16* __restrict__ sc_dy,
+                     float* __restrict__ part_bias, int T, int C, int Hd, int E, int F, int BT,
+                     int FC) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const LegacyLayout L(kMode, BT, FC, C, E);
+  const Dw2Layout L(BT, FC, C, E);
   bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
   bf16* sDO = reinterpret_cast<bf16*>(smem + L.dout);
-  bf16* sDY = reinterpret_cast<bf16*>(smem + L.dy);
   bf16* sW1 = reinterpret_cast<bf16*>(smem + L.w1);
-  bf16* sW2 = reinterpret_cast<bf16*>(smem + L.w2);
   float* sZ = reinterpret_cast<float*>(smem + L.z);
-  float* sG = reinterpret_cast<float*>(smem + L.g);
-  float* sDH = reinterpret_cast<float*>(smem + L.dh);
-  bf16* sH = reinterpret_cast<bf16*>(smem + L.h);
-  float* sAcc = reinterpret_cast<float*>(smem + L.acc);
   float* sP = reinterpret_cast<float*>(smem + L.p);
-  float* sDP = reinterpret_cast<float*>(smem + L.dp);
 
   const int tid = threadIdx.x;
   const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
@@ -350,13 +345,7 @@ moe_legacy_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
 
   stage_rows(sX, L.ldx, x + (long long)t0 * C, BT, rows, C);
   stage_rows(sDO, L.ldx, dout + (long long)t0 * C, BT, rows, C);
-  for (int i = tid; i < BT * E; i += NTHREADS) {
-    sP[i] = 0.f;
-    if constexpr (kMode == kDx) sDP[i] = 0.f;
-  }
-  if constexpr (kMode == kDx) {
-    for (int i = tid; i < BT * L.ldacc; i += NTHREADS) sAcc[i] = 0.f;
-  }
+  for (int i = tid; i < BT * E; i += NTHREADS) sP[i] = 0.f;
   cp_async_wait_all();
   __syncthreads();
   router_tile(sX, L.ldx, fw, cw, tl, inv_temp, sW1, L.ldw1, sZ, L.ldz, sP, t0, rows, BT, C, Hd,
@@ -364,50 +353,29 @@ moe_legacy_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
 
   const int nfc = F / FC, nch = E * nfc;
   const int ch_end = (int)((long long)(split + 1) * nch / splits);
-  int cur_e = -1;
   for (int ch = (int)((long long)split * nch / splits); ch < ch_end; ++ch) {
     const int e = ch / nfc, f0 = (ch % nfc) * FC;
-    if constexpr (kMode == kDw2) {
-      // One block per (tile, expert) meets f0 == 0: it writes that expert's
-      // dy rows and the tile's column sums of p_e dout.
-      if (f0 == 0) {
-        for (int i = tid; i < rows * C; i += NTHREADS) {
-          const int r = i / C, c = i % C;
-          sc_dy[(long long)(t0 + r) * E * C + e * C + c] =
-              __float2bfloat16(sP[r * E + e] * __bfloat162float(sDO[r * L.ldx + c]));
-        }
-        for (int c = tid; c < C; c += NTHREADS) {
-          float s = 0.f;
-          for (int r = 0; r < rows; ++r) s = fmaf(sP[r * E + e], __bfloat162float(sDO[r * L.ldx + c]), s);
-          part_bias[(long long)tile * E * C + e * C + c] = s;
-        }
+    // One block per (tile, expert) meets f0 == 0: it writes that expert's
+    // dy rows and the tile's column sums of p_e dout.
+    if (f0 == 0) {
+      for (int i = tid; i < rows * C; i += NTHREADS) {
+        const int r = i / C, c = i % C;
+        sc_dy[(long long)(t0 + r) * E * C + e * C + c] =
+            __float2bfloat16(sP[r * E + e] * __bfloat162float(sDO[r * L.ldx + c]));
       }
-    } else {
-      if (e != cur_e) {  // dy_e = bf16(p_e dout) for this expert's chunks
-        for (int i = tid; i < BT * C; i += NTHREADS) {
-          const int r = i / C, c = i % C;
-          sDY[r * L.ldx + c] = __float2bfloat16(sP[r * E + e] * __bfloat162float(sDO[r * L.ldx + c]));
-        }
-        cur_e = e;
+      for (int c = tid; c < C; c += NTHREADS) {
+        float s = 0.f;
+        for (int r = 0; r < rows; ++r) s = fmaf(sP[r * E + e], __bfloat162float(sDO[r * L.ldx + c]), s);
+        part_bias[(long long)tile * E * C + e * C + c] = s;
       }
-      stage_rows(sW2, L.ldw2, w2 + ((long long)e * F + f0) * C, FC, FC, C);
     }
     stage_cols(sW1, L.ldw1, w1 + (long long)e * C * F, C, F, f0, FC, F);
     cp_async_wait_all();
     __syncthreads();
 
-    // z = x W1 slice; g = dout W2 slice^T; dh = dy W2 slice^T (W2 slice
-    // [FC, C] read column-major).
+    // z = x W1 slice.
     mma_tiles<wmma::row_major, wmma::row_major>(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C,
                                                 false);
-    if constexpr (kMode == kDx) {
-      mma_tiles<wmma::row_major, wmma::col_major>(sDO, L.ldx, sW2, L.ldw2, sG, L.ldz, BT, FC, C,
-                                                  false);
-    }
-    if constexpr (kMode != kDw2) {
-      mma_tiles<wmma::row_major, wmma::col_major>(sDY, L.ldx, sW2, L.ldw2, sDH, L.ldz, BT, FC,
-                                                  C, false);
-    }
     __syncthreads();
 
     for (int i = tid; i < BT * FC; i += NTHREADS) {
@@ -415,69 +383,20 @@ moe_legacy_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
       const float z = sZ[r * L.ldz + j] + b1[(long long)e * F + f0 + j];
       const float cdf = 0.5f * (1.f + erff(z * 0.70710678118654752f));
       const long long at = (long long)(t0 + r) * EF + e * F + f0 + j;
-      if constexpr (kMode == kDw2) {
-        if (r < rows) sc_f[at] = __float2bfloat16(z * cdf);
-      } else {
-        const float dz =
-            sDH[r * L.ldz + j] * (cdf + z * 0.3989422804014327f * expf(-0.5f * z * z));
-        if constexpr (kMode == kDx) {
-          const float hv = __bfloat162float(__float2bfloat16(z * cdf));
-          sG[r * L.ldz + j] *= hv;
-          sH[r * L.ldh + j] = __float2bfloat16(dz);
-        } else {
-          sZ[r * L.ldz + j] = dz;
-          if (r < rows) sc_f[at] = __float2bfloat16(dz);
-        }
-      }
+      if (r < rows) sc_f[at] = __float2bfloat16(z * cdf);
     }
     __syncthreads();
-
-    if constexpr (kMode == kDx) {
-      // Row sums of g*h into dp[:, e]; dx += bf16(dz) W1 slice^T.
-      for (int r = tid; r < BT; r += NTHREADS) {
-        float s = 0.f;
-        for (int j = 0; j < FC; ++j) s += sG[r * L.ldz + j];
-        sDP[r * E + e] += s;
-      }
-      mma_tiles<wmma::row_major, wmma::col_major>(sH, L.ldh, sW1, L.ldw1, sAcc, L.ldacc, BT, C,
-                                                  FC, true);
-    } else if constexpr (kMode == kDw1) {
-      for (int j = tid; j < FC; j += NTHREADS) {
-        float s = 0.f;
-        for (int r = 0; r < rows; ++r) s += sZ[r * L.ldz + j];
-        part_bias[(long long)tile * EF + e * F + f0 + j] = s;
-      }
-    }
-    __syncthreads();
-  }
-
-  if constexpr (kMode == kDx) {
-    float* dx_part = ws_dx + ((long long)split * T + t0) * C;
-    for (int i = tid; i < rows * C; i += NTHREADS) {
-      const int r = i / C, c = i % C;
-      dx_part[i] = sAcc[r * L.ldacc + c];
-    }
-    float* dp_part = ws_dp + ((long long)split * T + t0) * E;
-    for (int i = tid; i < rows * E; i += NTHREADS) {
-      float bias = 0.f;
-      if (split == 0) {  // dout . b2_e, once per token
-        const int r = i / E, e = i % E;
-        for (int c = 0; c < C; ++c)
-          bias = fmaf(__bfloat162float(sDO[r * L.ldx + c]), b2[(long long)e * C + c], bias);
-      }
-      dp_part[i] = sDP[i] + bias;
-    }
   }
 }
 
 // Largest token tile, then widest F-chunk, whose shared memory fits.
-bool pick_legacy_tiles(int mode, int C, int F, int E, int* bt, int* fc) {
+bool pick_dw2_tiles(int C, int F, int E, int* bt, int* fc) {
   const int bts[] = {64, 32, 16};
   const int fcs[] = {64, 32, 16};
   for (int b : bts) {
     for (int f : fcs) {
       if (F % f != 0) continue;
-      if (LegacyLayout(mode, b, f, C, E).total <= SMEM_LIMIT) {
+      if (Dw2Layout(b, f, C, E).total <= SMEM_LIMIT) {
         *bt = b;
         *fc = f;
         return true;
@@ -485,31 +404,6 @@ bool pick_legacy_tiles(int mode, int C, int F, int E, int* bt, int* fc) {
     }
   }
   return false;
-}
-
-template <int kMode>
-int launch_legacy_token(const void* x, const void* fw, const void* cw, const void* tl,
-                        const void* inv_temp, const void* w1, const void* b1, const void* w2,
-                        const void* b2, const void* dout, void* ws_dx, void* ws_dp, void* sc_f,
-                        void* sc_dy, void* part_bias, int T, int C, int Hd, int E, int F,
-                        const int* plan, cudaStream_t st) {
-  int bt = 0, fc = 0;
-  if (!pick_legacy_tiles(kMode, C, F, E, &bt, &fc) || bt != plan[0] || fc != plan[1] ||
-      plan[2] < 1 || plan[2] > 65535 || plan[3] < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const LegacyLayout L(kMode, bt, fc, C, E);
-  cudaError_t err = cudaFuncSetAttribute(moe_legacy_token_kernel<kMode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  moe_legacy_token_kernel<kMode><<<dim3((T + bt - 1) / bt, plan[2]), NTHREADS, L.total, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(fw), static_cast<const float*>(cw),
-      static_cast<const float*>(tl), static_cast<const float*>(inv_temp),
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<const bf16*>(dout), static_cast<float*>(ws_dx),
-      static_cast<float*>(ws_dp), static_cast<bf16*>(sc_f), static_cast<bf16*>(sc_dy),
-      static_cast<float*>(part_bias), T, C, Hd, E, F, bt, fc);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // out [n] = the sum of ws [k, n] over k < count, in order.
@@ -533,6 +427,640 @@ int wgrad(const void* A, int lda, const void* B, int ldb, void* ws, void* out, i
   return sum_into(ws, out, (long long)M * N, splits, st);
 }
 
+}  // namespace wm
+
+// --- dx and dW1: register tiles ------------------------------------------------------------
+
+using namespace moe;
+
+// bf16(p dout) for the A fragment `a` of dout (a[0], a[2]: row g; a[1],
+// a[3]: row g + 8) and the rows' p_e: each bf16 pair times its row's p in
+// fp32, rounded to bf16, as the TPU kernels round dy.
+__device__ __forceinline__ void scale_rows(uint32_t (&dy)[4], const uint32_t (&a)[4], float p0,
+                                           float p1) {
+  dy[0] = scale_bf16x2(a[0], p0);
+  dy[1] = scale_bf16x2(a[1], p1);
+  dy[2] = scale_bf16x2(a[2], p0);
+  dy[3] = scale_bf16x2(a[3], p1);
+}
+
+// dh[N] += bf16(p_e dout) W2-slice^T and, with kG, gz[N] += dout W2-slice^T,
+// for the warp's 16 rows row0.. of dout (shared, width CP, K = CP) and rows
+// n0 .. n0 + 8N - 1 of the W2 slice [FC][CP]: each ldmatrix of dout and of
+// W2 feeds both products. p0, p1: p_e of rows row0 + g and row0 + g + 8.
+template <int CP, int N, bool kG>
+__device__ __forceinline__ void mma_g_dh(float (&gz)[N][4], float (&dh)[N][4], const bf16* sDO,
+                                         int row0, const bf16* w2s, int n0, float p0, float p1) {
+#pragma unroll
+  for (int kk = 0; kk < CP / 16; ++kk) {
+    uint32_t a[4], ady[4];
+    load_a<CP>(a, sDO, row0, kk * 16);
+    scale_rows(ady, a, p0, p1);
+#pragma unroll
+    for (int np = 0; np < N / 2; ++np) {
+      uint32_t b[4];
+      load_bt<CP>(b, w2s, n0 + np * 16, kk * 16);
+      if constexpr (kG) {
+        mma(gz[2 * np], a, b[0], b[1]);
+        mma(gz[2 * np + 1], a, b[2], b[3]);
+      }
+      mma(dh[2 * np], ady, b[0], b[1]);
+      mma(dh[2 * np + 1], ady, b[2], b[3]);
+    }
+  }
+}
+
+// Dynamic shared memory of the token kernel at padded width CP: x and dout
+// tiles, NB W1 and NB W2 slices, the [BT][PE] probabilities; for dx with
+// CW > 1 the [BT][FC] dz tile and the [CW][BT][PE] dp partials, for dW1 the
+// [RW][FC] db1 partials.
+template <int CP, bool kDx>
+constexpr int token_smem_bytes() {
+  using L = Tile<CP>;
+  return 2 * (2 * L::BT * pitch(CP) + L::NB * (CP * pitch(FC) + FC * pitch(CP)) +
+              (kDx && L::CW > 1 ? L::BT * pitch(FC) : 0)) +
+         4 * (L::BT * PE + (kDx ? L::CW * L::BT * PE : L::RW * FC));
+}
+
+// Block (token tile, split): the tile's share of the (expert, chunk) loop.
+// kDx: dx and dp of the tile ([splits, T, C] and [splits, T, E] partials when
+// gridDim.y > 1; dp with dout . b2 in split 0). Else (dW1's scratch route,
+// CP = 512 only): bf16 dz into dz_out [T, E*F] and the tile's fp32 column
+// sums of dz into part_db1 [ntiles, E*F]. The launch bound's minimum of blocks an SM sets
+// the registers ptxas may take: from CP = 128, where shared memory holds at
+// most two blocks, a minimum of one lets dx take 166-247 registers and run
+// 4-12 % faster than with 126-185 under no stated minimum; below, four keep
+// it at 128 (a minimum of one let it take 215 at CP = 32 and cost 24 %)
+// (scripts/torch_moe_bench.py, H100 80GB HBM3, 700 W).
+template <int CP, bool kDx>
+__global__ void __launch_bounds__(Tile<CP>::NT, CP >= 128 ? 1 : 4)
+moe_legacy_token_kernel(const bf16* __restrict__ x, const float* __restrict__ probs,
+                    const bf16* __restrict__ w1, const float* __restrict__ b1,
+                    const bf16* __restrict__ w2, const float* __restrict__ b2,
+                    const bf16* __restrict__ dout, float* __restrict__ dx, float* __restrict__ dp,
+                    bf16* __restrict__ dz_out, float* __restrict__ part_db1, int T, int C, int E,
+                    int F) {
+  using L = Tile<CP>;
+  static_assert(kDx || CP > 256, "dW1 takes the scratch route above C = 256 only");
+  constexpr bool kDzTile = kDx && L::CW > 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sX = reinterpret_cast<bf16*>(smem);  // [BT][CP + 8]
+  bf16* sDO = sX + L::BT * pitch(CP);        // [BT][CP + 8]
+  bf16* sW1 = sDO + L::BT * pitch(CP);       // [NB][CP][FC + 8]
+  bf16* sW2 = sW1 + L::NB * CP * pitch(FC);  // [NB][FC][CP + 8]
+  bf16* sDZ = sW2 + L::NB * FC * pitch(CP);  // [BT][FC + 8], kDzTile
+  float* sP = reinterpret_cast<float*>(sDZ + (kDzTile ? L::BT * pitch(FC) : 0));  // [BT][PE]
+  float* sDP = sP + L::BT * PE;              // [CW][BT][PE], kDx
+  float* sDB = sDP;                          // [RW][FC], !kDx
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, tq = lane & 3;
+  const int row0 = (warp / L::CW) * 16, cg = warp % L::CW;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int t0 = tile * L::BT;
+  const long long EF = (long long)E * F;
+
+  stage_tile<L::BT, CP, L::NT>(sX, x, C, t0, T, 0, C);
+  stage_tile<L::BT, CP, L::NT>(sDO, dout, C, t0, T, 0, C);
+  cp_async_commit();
+  for (int i = tid; i < L::BT * PE; i += L::NT) {
+    const int r = i / PE, e = i % PE;
+    sP[i] = (e < E && t0 + r < T) ? probs[(long long)(t0 + r) * E + e] : 0.f;
+  }
+  if constexpr (kDx) {
+    for (int i = tid; i < L::CW * L::BT * PE; i += L::NT) sDP[i] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int nfc = (F + FC - 1) / FC, nch = E * nfc;
+  const int ch_end = (int)((long long)(split + 1) * nch / splits);
+  auto stage_w1 = [&](int ch, int b) {
+    stage_tile<CP, FC, L::NT>(sW1 + b * CP * pitch(FC), w1 + (long long)(ch / nfc) * C * F, F, 0,
+                              C, (ch % nfc) * FC, F);
+  };
+  auto stage_w2 = [&](int ch, int b) {
+    stage_tile<FC, CP, L::NT>(sW2 + b * FC * pitch(CP), w2 + (long long)(ch / nfc) * F * C, C,
+                              (ch % nfc) * FC, F, 0, C);
+  };
+  // p_e of the warp's rows g and g + 8 for chunk ch.
+  auto p_rows = [&](int ch, float& p0, float& p1) {
+    p0 = sP[(row0 + g) * PE + ch / nfc];
+    p1 = sP[(row0 + g + 8) * PE + ch / nfc];
+  };
+
+  float acc[kDx ? L::NA : 1][4];  // dx
+  zero_tiles(acc);
+  const int zc0 = cg * (FC / L::CW), ac0 = cg * (CP / L::CW);
+
+  // Columns n0 .. n0 + 8N - 1 of the warp's share of chunk ch, given z, dh
+  // (and with kDx g) there: dz = dh gelu'(z + b1), packed bf16 (dzp[n][0]
+  // row g, [1] row g + 8). kDx: the dp partials s0, s1 += g *
+  // bf16(gelu(z + b1)). Else bf16 dz into the scratch and the strip's fp32
+  // column sums of dz into sDB.
+  auto dz_tiles = [&](int ch, int n0, auto& gz, auto& dh, auto& z, auto& dzp, float& s0,
+                      float& s1) {
+    constexpr int N = sizeof(dh) / sizeof(dh[0]);
+    const int e = ch / nfc, f0 = (ch % nfc) * FC;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int f = f0 + n0 + n * 8 + 2 * tq;
+      const float2 bb = f < F ? *reinterpret_cast<const float2*>(b1 + (long long)e * F + f)
+                              : make_float2(0.f, 0.f);
+      float d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float zz = z[n][i] + ((i & 1) ? bb.y : bb.x);
+        float ez;
+        const float cdf = gelu_cdf(zz, ez);
+        d[i] = dh[n][i] * fmaf(zz * INV_SQRT_2PI, ez, cdf);
+        if constexpr (kDx) {
+          const float h = round_bf16(zz * cdf);
+          if (i < 2) s0 = fmaf(gz[n][i], h, s0);
+          else s1 = fmaf(gz[n][i], h, s1);
+        }
+      }
+      dzp[n][0] = pack_bf16(d[0], d[1]);
+      dzp[n][1] = pack_bf16(d[2], d[3]);
+      if constexpr (!kDx) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long t = t0 + row0 + g + 8 * half;
+          if (t < T && f < F)
+            *reinterpret_cast<uint32_t*>(dz_out + t * EF + (long long)e * F + f) = dzp[n][half];
+        }
+        float c0 = d[0] + d[2], c1 = d[1] + d[3];  // rows g and g + 8; past T dz is 0
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+          c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+        }
+        if (g == 0) {
+          sDB[(row0 / 16) * FC + n0 + n * 8 + 2 * tq] = c0;
+          sDB[(row0 / 16) * FC + n0 + n * 8 + 2 * tq + 1] = c1;
+        }
+      }
+    }
+  };
+  // This tile's column sums of fp32 dz over chunk ch, added over the strips
+  // in order (after a barrier that makes sDB whole).
+  auto store_db1 = [&](int ch) {
+    const int f = (ch % nfc) * FC + threadIdx.x;
+    if (threadIdx.x < FC && f < F) {
+      float sum = 0.f;
+      for (int r = 0; r < L::RW; ++r) sum += sDB[r * FC + threadIdx.x];
+      part_db1[(long long)tile * EF + (long long)(ch / nfc) * F + f] = sum;
+    }
+  };
+  // The dp partials of chunk ch into sDP: one lane owns each (column warp,
+  // row, expert) entry.
+  auto flush_dp = [&](int ch, float s0, float s1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (tq == 0) {
+      sDP[(cg * L::BT + row0 + g) * PE + ch / nfc] += s0;
+      sDP[(cg * L::BT + row0 + g + 8) * PE + ch / nfc] += s1;
+    }
+  };
+
+  int ch = (int)((long long)split * nch / splits);
+  if constexpr (L::NB == 2) {
+    // dx only (CP <= 128). Both slices of the next chunk land while this one
+    // is computed; the chunk goes in two halves of 32 columns (g and dh, z,
+    // dz, then their two k-steps of dx), which keeps fewer fragments live.
+    constexpr int NH = L::NZ / 2;
+    if (ch < ch_end) {
+      stage_w1(ch, 0);
+      stage_w2(ch, 0);
+      cp_async_commit();
+    }
+    for (int b = 0; ch < ch_end; ++ch, b ^= 1) {
+      cp_async_wait_all();
+      __syncthreads();  // chunk ch landed; every warp is done with buffer b ^ 1
+      if (ch + 1 < ch_end) {
+        stage_w1(ch + 1, b ^ 1);
+        stage_w2(ch + 1, b ^ 1);
+        cp_async_commit();
+      }
+      const bf16* w1s = sW1 + b * CP * pitch(FC);
+      const bf16* w2s = sW2 + b * FC * pitch(CP);
+      float p0, p1, s0 = 0.f, s1 = 0.f;
+      p_rows(ch, p0, p1);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float gz[NH][4], dh[NH][4], z[NH][4];
+        zero_tiles(gz);
+        zero_tiles(dh);
+        zero_tiles(z);
+        mma_g_dh<CP, NH, true>(gz, dh, sDO, row0, w2s, hf * NH * 8, p0, p1);
+        mma_kn<CP / 16, NH, CP, FC>(z, sX, row0, 0, w1s, hf * NH * 8);
+        uint32_t dzp[NH][2];
+        dz_tiles(ch, hf * NH * 8, gz, dh, z, dzp, s0, s1);
+#pragma unroll
+        for (int ks = 0; ks < NH / 2; ++ks) {  // dx += bf16(dz) W1-slice^T
+          uint32_t a[4];
+          packed_a(a, dzp, ks);
+#pragma unroll
+          for (int np = 0; np < L::NA / 2; ++np) {
+            uint32_t bw[4];
+            load_bt<FC>(bw, w1s, ac0 + np * 16, hf * NH * 8 + ks * 16);
+            mma(acc[2 * np], a, bw[0], bw[1]);
+            mma(acc[2 * np + 1], a, bw[2], bw[3]);
+          }
+        }
+      }
+      flush_dp(ch, s0, s1);
+    }
+  } else {
+    // One buffer each: the next W2 slice lands while z, dz and dx are
+    // computed, the next W1 slice while g and dh are.
+    if (ch < ch_end) {
+      stage_w2(ch, 0);
+      cp_async_commit();
+      stage_w1(ch, 0);
+      cp_async_commit();
+    }
+    for (; ch < ch_end; ++ch) {
+      const bool more = ch + 1 < ch_end;
+      float p0, p1, s0 = 0.f, s1 = 0.f;
+      p_rows(ch, p0, p1);
+      cp_async_wait<1>();  // this chunk's W2 slice; its W1 slice may still be in flight
+      __syncthreads();
+      float gz[kDx ? L::NZ : 1][4], dh[L::NZ][4];  // g = dout W2-slice^T, dh = dy W2-slice^T
+      zero_tiles(gz);
+      zero_tiles(dh);
+      if constexpr (kDx) {
+        mma_g_dh<CP, L::NZ, true>(gz, dh, sDO, row0, sW2, zc0, p0, p1);
+      } else {
+        mma_g_dh<CP, L::NZ, false>(dh, dh, sDO, row0, sW2, zc0, p0, p1);
+      }
+      __syncthreads();  // every warp is done with sW2
+      if (more) stage_w2(ch + 1, 0);
+      cp_async_commit();   // (empty when there is no next chunk: keeps the count)
+      cp_async_wait<1>();  // this chunk's W1 slice
+      __syncthreads();
+
+      float z[L::NZ][4];
+      zero_tiles(z);
+      mma_kn<CP / 16, L::NZ, CP, FC>(z, sX, row0, 0, sW1, zc0);
+      uint32_t dzp[L::NZ][2];
+      dz_tiles(ch, zc0, gz, dh, z, dzp, s0, s1);
+      if constexpr (kDx) {
+#pragma unroll
+        for (int n = 0; n < L::NZ; ++n) {
+          *reinterpret_cast<uint32_t*>(sDZ + (row0 + g) * pitch(FC) + zc0 + n * 8 + 2 * tq) =
+              dzp[n][0];
+          *reinterpret_cast<uint32_t*>(sDZ + (row0 + g + 8) * pitch(FC) + zc0 + n * 8 + 2 * tq) =
+              dzp[n][1];
+        }
+        flush_dp(ch, s0, s1);
+        __syncthreads();  // the dz tile is whole
+#pragma unroll
+        for (int ks = 0; ks < FC / 16; ++ks) {  // dx += bf16(dz) W1-slice^T
+          uint32_t a[4];
+          load_a<FC>(a, sDZ, row0, ks * 16);
+#pragma unroll
+          for (int np = 0; np < L::NA / 2; ++np) {
+            uint32_t bw[4];
+            load_bt<FC>(bw, sW1, ac0 + np * 16, ks * 16);
+            mma(acc[2 * np], a, bw[0], bw[1]);
+            mma(acc[2 * np + 1], a, bw[2], bw[3]);
+          }
+        }
+        __syncthreads();  // every warp is done with sW1 and sDZ
+      } else {
+        __syncthreads();  // sDB is whole; every warp is done with sW1
+        store_db1(ch);
+      }
+      if (more) {
+        stage_w1(ch + 1, 0);  // lands while the next g and dh run
+        cp_async_commit();
+      }
+    }
+  }
+
+  if constexpr (kDx) {
+    // dx: this split's partial, or the whole sum when the loop is not split.
+    float* dxs = dx + (long long)split * T * C;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = t0 + row0 + g + 8 * half;
+      if (t >= T) continue;
+#pragma unroll
+      for (int n = 0; n < L::NA; ++n) {
+        const int c = ac0 + n * 8 + 2 * tq;
+        if (c < C)
+          *reinterpret_cast<float2*>(dxs + (long long)t * C + c) =
+              make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+      }
+    }
+    __syncthreads();  // the dp partials are whole
+    float* dps = dp + (long long)split * T * E;
+    for (int i = tid; i < L::BT * E; i += L::NT) {
+      const int r = i / E, e = i % E, t = t0 + r;
+      if (t >= T) continue;
+      float s = 0.f;
+      for (int c = 0; c < L::CW; ++c) s += sDP[(c * L::BT + r) * PE + e];
+      if (split == 0) {  // dout . b2_e, once a token
+        for (int c = 0; c < C; ++c)
+          s = fmaf(__bfloat162float(sDO[r * pitch(CP) + c]), b2[(long long)e * C + c], s);
+      }
+      dps[(long long)t * E + e] = s;
+    }
+  }
+}
+
+// dW1's recompute route: block (expert e, chunk of FW = 64 hidden units, T
+// range s of `tchunk` tokens), 8 warps, tokens in stages of BTK (as
+// fused_moe_bwd.cu's recompute block, whose stages are 32 tokens). Warp (mw,
+// kw) takes the chunk's hidden units mw * 16.. and, in each 32-token group of
+// a stage, the tokens kw * 16..: z^T = W1-slice^T x^T and dh^T = W2-slice
+// dy^T over K = C (dy's B fragments are dout's times each token's p_e,
+// rounded to bf16), dz = dh gelu'(z) packed bf16 as the A fragment of dW1^T
+// += dz^T x, whose [16, CP] fp32 sums stay in registers; the two token warps'
+// sums are added in order at the end. Outputs (partials when gridDim.y > 1,
+// indexed by s): dw1t [E][F][C] (dW1 transposed) and db1 [E][F]. Its shape
+// is moe_tiles.cuh's WTile, with stages of recompute_step<CP>() tokens.
+
+// Tokens a stage at padded width CP (ops/fused_moe.py::_recompute_step
+// mirrors it). At CP = 32 a 32-token group is a few hundred cycles of work,
+// less than a stage's copy latency, and four groups a stage took the res-64
+// block from 0.278 to 0.240 ms; at CP = 64 they changed nothing and at 128
+// two cost 7 % (scripts/torch_moe_bench.py, H100 80GB HBM3, 700 W).
+template <int CP>
+__host__ __device__ constexpr int recompute_step() {
+  return CP == 32 ? 128 : 32;
+}
+
+// W1 slice [CP][FW], W2 slice [FW][CP], two stages of x and dout [BTK][CP]
+// (bf16); two stages of p_e [BTK] and the db1 sums [NT] (fp32). The
+// cross-warp sums [FW][CP] fp32 reuse the x and dout stages after the last
+// stage.
+template <int CP>
+constexpr int recompute_smem_bytes() {
+  using W = WTile;
+  constexpr int BTK = recompute_step<CP>();
+  return 2 * (CP * pitch(W::FW) + W::FW * pitch(CP) + 4 * BTK * pitch(CP)) + 4 * (2 * BTK + W::NT);
+}
+
+template <int CP>
+__global__ void __launch_bounds__(WTile::NT)
+moe_dw1_recompute_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
+                         const float* __restrict__ probs, const bf16* __restrict__ w1,
+                         const float* __restrict__ b1, const bf16* __restrict__ w2,
+                         float* __restrict__ dw1t, float* __restrict__ db1, int T, int C,
+                         int E, int F, int tchunk) {
+  using W = WTile;
+  constexpr int BTK = recompute_step<CP>(), NSUB = BTK / (16 * W::KS), FW = W::FW, NT = W::NT;
+  static_assert(CP <= 256, "the recompute route keeps [16, CP] sums a warp");
+  static_assert(BTK % (16 * W::KS) == 0 && BTK <= NT, "a stage is whole 32-token groups");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sW1t = reinterpret_cast<bf16*>(smem);  // [CP][FW + 8]
+  bf16* sW2 = sW1t + CP * pitch(FW);           // [FW][CP + 8]
+  bf16* sX = sW2 + FW * pitch(CP);             // [2][BTK][CP + 8]
+  bf16* sDO = sX + 2 * BTK * pitch(CP);        // [2][BTK][CP + 8]
+  float* sPE = reinterpret_cast<float*>(sDO + 2 * BTK * pitch(CP));  // [2][BTK]
+  float* sRed = sPE + 2 * BTK;                 // [NT], the db1 sums
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, tq = lane & 3;
+  const int mw = warp / W::KS, kw = warp % W::KS;
+  const int nfw = (F + FW - 1) / FW;
+  const int e = blockIdx.x / nfw, f0 = (blockIdx.x % nfw) * FW, s = blockIdx.y;
+  const int tb = s * tchunk, te = min(T, tb + tchunk);
+  const int ntile = te > tb ? (te - tb + BTK - 1) / BTK : 0;
+
+  stage_tile<CP, FW, NT>(sW1t, w1 + (long long)e * C * F, F, 0, C, f0, F);
+  stage_tile<FW, CP, NT>(sW2, w2 + (long long)e * F * C, C, f0, F, 0, C);
+  auto issue = [&](int j) {  // stage j into buffer j % 2, one commit group
+    const int st = j & 1, t = tb + j * BTK;
+    stage_tile<BTK, CP, NT>(sX + st * BTK * pitch(CP), x, C, t, te, 0, C);
+    stage_tile<BTK, CP, NT>(sDO + st * BTK * pitch(CP), dout, C, t, te, 0, C);
+    if (tid < BTK) {
+      const bool ok = t + tid < te;
+      cp_async4(sPE + st * BTK + tid, ok ? probs + (long long)(t + tid) * E + e : probs, ok);
+    }
+    cp_async_commit();
+  };
+  if (ntile > 0) issue(0);  // with the weight slices
+  else cp_async_commit();
+
+  // Rows fr and fr + 8 of the warp's m-tile.
+  const int fr = f0 + mw * 16 + g;
+  const float b1r[2] = {fr < F ? b1[(long long)e * F + fr] : 0.f,
+                        fr + 8 < F ? b1[(long long)e * F + fr + 8] : 0.f};
+  float db1r[2] = {0.f, 0.f};
+  float a1[CP / 8][4];  // dW1^T [16, CP] of the warp
+  zero_tiles(a1);
+  for (int j = 0; j < ntile; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // stage j landed; every warp is done with stage j - 1
+    if (j + 1 < ntile) issue(j + 1);
+    const bf16* xs = sX + (j & 1) * BTK * pitch(CP);
+    const bf16* ds = sDO + (j & 1) * BTK * pitch(CP);
+    const float* pes = sPE + (j & 1) * BTK;
+#pragma unroll
+    for (int sub = 0; sub < NSUB; ++sub) {
+      const int tw = sub * 16 * W::KS + kw * 16;  // the warp's 16 tokens of this group
+      // B fragments b[0], b[1] hold token tw + g, b[2], b[3] token tw + 8 + g.
+      const float p0 = pes[tw + g], p1 = pes[tw + 8 + g];
+
+      // z^T and dh^T of the warp's 16 hidden units and 16 tokens, K = C.
+      float zq[2][4], dq[2][4];
+      zero_tiles(zq);
+      zero_tiles(dq);
+#pragma unroll
+      for (int kk = 0; kk < CP / 16; ++kk) {
+        uint32_t aw[4], b[4];
+        load_at<FW>(aw, sW1t, mw * 16, kk * 16);
+        load_bt<CP>(b, xs, tw, kk * 16);
+        mma(zq[0], aw, b[0], b[1]);
+        mma(zq[1], aw, b[2], b[3]);
+        load_a<CP>(aw, sW2, mw * 16, kk * 16);
+        load_bt<CP>(b, ds, tw, kk * 16);
+        mma(dq[0], aw, scale_bf16x2(b[0], p0), scale_bf16x2(b[1], p0));
+        mma(dq[1], aw, scale_bf16x2(b[2], p1), scale_bf16x2(b[3], p1));
+      }
+      // dz in registers, packed bf16 as the A fragment of the sums.
+      uint32_t dzq[2][2];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float d[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float zz = zq[n][i] + b1r[i >> 1];
+          float ez;
+          const float cdf = gelu_cdf(zz, ez);
+          d[i] = dq[n][i] * fmaf(zz * INV_SQRT_2PI, ez, cdf);
+          db1r[i >> 1] += d[i];
+        }
+        dzq[n][0] = pack_bf16(d[0], d[1]);
+        dzq[n][1] = pack_bf16(d[2], d[3]);
+      }
+      uint32_t adz[4];
+      packed_a(adz, dzq, 0);
+      // dW1^T += bf16(dz)^T x over the warp's tokens.
+#pragma unroll
+      for (int np = 0; np < CP / 16; ++np) {
+        uint32_t b[4];
+        load_b<CP>(b, xs, tw, np * 16);
+        mma(a1[2 * np], adz, b[0], b[1]);
+        mma(a1[2 * np + 1], adz, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every warp is done with the last tile
+
+  // The token groups' sums meet in [FW][CP] fp32 over the token stages, added
+  // in warp order; warp kw == 0 of each m-tile writes them.
+  float* sAcc = reinterpret_cast<float*>(sX);
+  static_assert(FW * CP * 4 <= 4 * BTK * pitch(CP) * 2, "cross-warp sums exceed the stages");
+  for (int k = 1; k < W::KS; ++k) {
+    if (kw == k) {
+#pragma unroll
+      for (int n = 0; n < CP / 8; ++n)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<float2*>(sAcc + (mw * 16 + g + 8 * half) * CP + n * 8 + 2 * tq) =
+              make_float2(a1[n][2 * half], a1[n][2 * half + 1]);
+    }
+    __syncthreads();
+    if (kw == 0) {
+#pragma unroll
+      for (int n = 0; n < CP / 8; ++n)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              sAcc + (mw * 16 + g + 8 * half) * CP + n * 8 + 2 * tq);
+          a1[n][2 * half] += v.x;
+          a1[n][2 * half + 1] += v.y;
+        }
+    }
+    __syncthreads();
+  }
+  if (kw == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int f = fr + 8 * half;
+      if (f >= F) continue;
+#pragma unroll
+      for (int n = 0; n < CP / 8; ++n) {
+        const int c = n * 8 + 2 * tq;
+        if (c >= C) continue;
+        const long long at = s * (long long)E * F * C + ((long long)e * F + f) * C + c;
+        *reinterpret_cast<float2*>(dw1t + at) = make_float2(a1[n][2 * half], a1[n][2 * half + 1]);
+      }
+    }
+  }
+
+  // db1: each warp's quad sums, added over the token groups in order.
+  wtile_unit_sums(db1r, sRed, db1 + (long long)s * E * F + (long long)e * F, f0, F);
+}
+
+// dW1's scratch route: out[s] = dz[T range s]^T x[T range s], dz [T, M = E*F]
+// and x [T, N = C] bf16, out [M, N] fp32 (dW1 transposed). Block (m-tile,
+// n-tile; s) forms one [GBM, GBN] tile by moe_tiles.cuh's wgrad_gemm_tile.
+__global__ void __launch_bounds__(256)
+moe_dw1_gemm_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ x,
+                    float* __restrict__ out, int T, int M, int N, int tchunk) {
+  const int s = blockIdx.y, tb = s * tchunk;
+  wgrad_gemm_tile(dz, x, out + (long long)s * M * N, M, N, tb, min(T, tb + tchunk));
+}
+
+// The splits a token kernel may take: plan[0] its tile, plan[1] its splits.
+template <int CP>
+bool token_plan_ok(const int* plan, int E, int F) {
+  const int nch = E * ((F + FC - 1) / FC);
+  return plan[0] == Tile<CP>::BT && plan[1] >= 1 && plan[1] <= 65535 && plan[1] <= nch;
+}
+
+template <int CP, bool kDx>
+cudaError_t launch_token(const void* x, const void* probs, const void* w1, const void* b1,
+                         const void* w2, const void* b2, const void* dout, float* dx, float* dp,
+                         void* dz, float* part_db1, int T, int C, int E, int F, int splits,
+                         cudaStream_t st) {
+  using L = Tile<CP>;
+  constexpr int smem = token_smem_bytes<CP, kDx>();
+  static_assert(smem <= MAX_SMEM, "token-kernel tiles exceed a block's shared memory");
+  static unsigned attr = 0;
+  cudaError_t err = set_smem_once(moe_legacy_token_kernel<CP, kDx>, smem, attr);
+  if (err != cudaSuccess) return err;
+  moe_legacy_token_kernel<CP, kDx><<<dim3((T + L::BT - 1) / L::BT, splits), L::NT, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(probs), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+      static_cast<const bf16*>(dout), dx, dp, static_cast<bf16*>(dz), part_db1, T, C, E, F);
+  return cudaGetLastError();
+}
+
+// dx: plan = (token tile, splits).
+template <int CP>
+int launch_dx(const void* x, const void* probs, const void* w1, const void* b1, const void* w2,
+              const void* b2, const void* dout, void* ws_dx, void* ws_dp, void* dx, void* dp,
+              int T, int C, int E, int F, const int* plan, cudaStream_t st) {
+  const int splits = plan[1];
+  if (!token_plan_ok<CP>(plan, E, F) || (splits > 1 && (ws_dx == nullptr || ws_dp == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = launch_token<CP, true>(
+      x, probs, w1, b1, w2, b2, dout, static_cast<float*>(splits > 1 ? ws_dx : dx),
+      static_cast<float*>(splits > 1 ? ws_dp : dp), nullptr, nullptr, T, C, E, F, splits, st);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  int rc = wm::sum_into(ws_dx, dx, (long long)T * C, splits, st);
+  return rc ? rc : wm::sum_into(ws_dp, dp, (long long)T * E, splits, st);
+}
+
+// dW1: plan = (token tile, splits, T ranges, tokens a range, scratch route),
+// the route being the scratch one exactly when CP > 256.
+template <int CP>
+int launch_dw1(const void* x, const void* probs, const void* w1, const void* b1, const void* w2,
+               const void* dout, void* dz, void* ws_db1, void* ws_w, void* dw1t, void* db1,
+               int T, int C, int E, int F, const int* plan, cudaStream_t st) {
+  constexpr bool kScratch = CP > 256;
+  const int tsplits = plan[2], tchunk = plan[3];
+  const int ntiles = (T + Tile<CP>::BT - 1) / Tile<CP>::BT;
+  const int step = kScratch ? GBK : recompute_step<CP>();
+  const int nbias = kScratch ? ntiles : tsplits;  // the db1 partials: per tile or per T range
+  if (!token_plan_ok<CP>(plan, E, F) || plan[4] != int(kScratch) ||
+      (!kScratch && plan[1] != 1) || tsplits < 1 || tsplits > 65535 ||
+      tchunk < 1 || tchunk % step != 0 || (long long)tsplits * tchunk < T ||
+      (long long)(tsplits - 1) * tchunk >= T || (kScratch && dz == nullptr) ||
+      (tsplits > 1 && ws_w == nullptr) || (nbias > 1 && ws_db1 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* w_dst = static_cast<float*>(tsplits > 1 ? ws_w : dw1t);
+  float* b_dst = static_cast<float*>(nbias > 1 ? ws_db1 : db1);
+  cudaError_t err;
+  if constexpr (kScratch) {
+    err = launch_token<CP, false>(x, probs, w1, b1, w2, nullptr, dout, nullptr, nullptr, dz,
+                                  b_dst, T, C, E, F, plan[1], st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int M = E * F, tiles = ((M + GBM - 1) / GBM) * ((C + GBN - 1) / GBN);
+    moe_dw1_gemm_kernel<<<dim3(tiles, tsplits), 256, 0, st>>>(
+        static_cast<const bf16*>(dz), static_cast<const bf16*>(x), w_dst, T, M, C, tchunk);
+  } else {
+    constexpr int smem = recompute_smem_bytes<CP>();
+    static_assert(smem <= MAX_SMEM, "recompute tiles exceed a block's shared memory");
+    static unsigned attr = 0;
+    if ((err = set_smem_once(moe_dw1_recompute_kernel<CP>, smem, attr)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int nfw = (F + WTile::FW - 1) / WTile::FW;
+    moe_dw1_recompute_kernel<CP><<<dim3(E * nfw, tsplits), WTile::NT, smem, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(dout),
+        static_cast<const float*>(probs), static_cast<const bf16*>(w1),
+        static_cast<const float*>(b1), static_cast<const bf16*>(w2), w_dst, b_dst, T, C, E, F,
+        tchunk);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  int rc = 0;
+  if (tsplits > 1) rc = wm::sum_into(ws_w, dw1t, (long long)E * F * C, tsplits, st);
+  if (!rc && nbias > 1) rc = wm::sum_into(ws_db1, db1, (long long)E * F, nbias, st);
+  return rc;
+}
+
+bool widths_ok(int T, int C, int E, int F) {
+  return T >= 1 && C >= 16 && C % 16 == 0 && F % 16 == 0 && F >= 16 && E >= 1 && E <= MAX_E &&
+         padded_width(C) != 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -541,37 +1069,43 @@ const char* moegan_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The plan of one legacy entry point (mode 0 dx, 1 dw2, 2 dw1) at
-// (T, C, F, E) on a card with `sms` SMs: plan[0..3] = token tile, F-chunk,
-// splits of the (expert, F-chunk) loop, and the T splits of the weight-
-// gradient product (1 for dx). Returns 0 if no tile fits shared memory.
-int moegan_moe_legacy_plan(int mode, int T, int C, int F, int E, int sms, int* plan) {
+// dx_ffn [T, C] and dp [T, E], fp32 (replaces _bwd_dx_kernel), given the
+// soft routing probs [T, E] fp32. plan: (token tile, splits) from
+// ops/fused_moe.py::legacy_plan; ws_dx [splits, T, C] and ws_dp [splits, T,
+// E] fp32 scratch when splits > 1 (else null).
+int moegan_moe_bwd_dx(const void* x, const void* probs, const void* w1, const void* b1,
+                      const void* w2, const void* b2, const void* dout, void* ws_dx, void* ws_dp,
+                      void* dx, void* dp, int T, int C, int E, int F, const int* plan,
+                      void* stream) {
+  if (!widths_ok(T, C, E, F)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MOE_DX(CP) \
+  launch_dx<CP>(x, probs, w1, b1, w2, b2, dout, ws_dx, ws_dp, dx, dp, T, C, E, F, plan, st)
+  switch (padded_width(C)) {
+    case 32: return MOE_DX(32);
+    case 64: return MOE_DX(64);
+    case 128: return MOE_DX(128);
+    case 256: return MOE_DX(256);
+    default: return MOE_DX(512);
+  }
+#undef MOE_DX
+}
+
+// The plan of dW2 at (T, C, F, E) on a card with `sms` SMs: plan[0..3] =
+// token tile, F-chunk, splits of the (expert, F-chunk) loop, and the T
+// splits of the weight-gradient product. Returns 0 if no tile fits shared
+// memory.
+int moegan_moe_bwd_dw2_plan(int T, int C, int F, int E, int sms, int* plan) {
   int bt = 0, fc = 0;
-  if (mode < kDx || mode > kDw1 || !pick_legacy_tiles(mode, C, F, E, &bt, &fc)) return 0;
+  if (!wm::pick_dw2_tiles(C, F, E, &bt, &fc)) return 0;
   const int ntiles = (T + bt - 1) / bt;
   const int nch = E * (F / fc);
   const int s = (sms + ntiles - 1) / ntiles;
   plan[0] = bt;
   plan[1] = fc;
   plan[2] = s < 1 ? 1 : (s > nch ? nch : s);
-  plan[3] = mode == kDw1 ? wgrad_splits(T, C, E * F, sms)
-                         : (mode == kDw2 ? wgrad_splits(T, F, C, sms) : 1);
+  plan[3] = wm::wgrad_splits(T, F, C, sms);
   return 1;
-}
-
-// dx_ffn [T, C] and dp [T, E], fp32 (replaces _bwd_dx_kernel). ws_dx
-// [plan[2], T, C] and ws_dp [plan[2], T, E] fp32 scratch.
-int moegan_moe_bwd_dx(const void* x, const void* fw, const void* cw, const void* tl,
-                      const void* inv_temp, const void* w1, const void* b1, const void* w2,
-                      const void* b2, const void* dout, void* ws_dx, void* ws_dp, void* dx,
-                      void* dp, int T, int C, int Hd, int E, int F, const int* plan,
-                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = launch_legacy_token<kDx>(x, fw, cw, tl, inv_temp, w1, b1, w2, b2, dout, ws_dx, ws_dp,
-                                     nullptr, nullptr, nullptr, T, C, Hd, E, F, plan, st);
-  if (err) return err;
-  if ((err = sum_into(ws_dx, dx, (long long)T * C, plan[2], st))) return err;
-  return sum_into(ws_dp, dp, (long long)T * E, plan[2], st);
 }
 
 // dW2 [E, F, C] and db2 [E, C], fp32 (replaces _bwd_dw2_kernel). Scratch:
@@ -582,38 +1116,57 @@ int moegan_moe_bwd_dw2(const void* x, const void* fw, const void* cw, const void
                        void* h, void* dy, void* part_db2, void* ws_w, void* dw2, void* db2, int T,
                        int C, int Hd, int E, int F, const int* plan, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (plan[3] > 1 && ws_w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int err = launch_legacy_token<kDw2>(x, fw, cw, tl, inv_temp, w1, b1, nullptr, nullptr, dout,
-                                      nullptr, nullptr, h, dy, part_db2, T, C, Hd, E, F, plan, st);
-  if (err) return err;
+  int bt = 0, fc = 0;
+  if (!wm::pick_dw2_tiles(C, F, E, &bt, &fc) || bt != plan[0] || fc != plan[1] || plan[2] < 1 ||
+      plan[2] > 65535 || plan[3] < 1 || (plan[3] > 1 && ws_w == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const wm::Dw2Layout L(bt, fc, C, E);
+  cudaError_t err = cudaFuncSetAttribute(wm::moe_dw2_token_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.total));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wm::moe_dw2_token_kernel<<<dim3((T + bt - 1) / bt, plan[2]), wm::NTHREADS, L.total, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(fw), static_cast<const float*>(cw),
+      static_cast<const float*>(tl), static_cast<const float*>(inv_temp),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(h), static_cast<bf16*>(dy),
+      static_cast<float*>(part_db2), T, C, Hd, E, F, bt, fc);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
   const long long fcn = (long long)F * C;
   for (int e = 0; e < E; ++e) {
-    err = wgrad(static_cast<const bf16*>(h) + (long long)e * F, E * F,
-                static_cast<const bf16*>(dy) + (long long)e * C, E * C,
-                plan[3] > 1 ? static_cast<float*>(ws_w) + e * plan[3] * fcn : nullptr,
-                static_cast<float*>(dw2) + e * fcn, T, F, C, plan[3], st);
-    if (err) return err;
+    rc = wm::wgrad(static_cast<const bf16*>(h) + (long long)e * F, E * F,
+                   static_cast<const bf16*>(dy) + (long long)e * C, E * C,
+                   plan[3] > 1 ? static_cast<float*>(ws_w) + e * plan[3] * fcn : nullptr,
+                   static_cast<float*>(dw2) + e * fcn, T, F, C, plan[3], st);
+    if (rc) return rc;
   }
-  return sum_into(part_db2, db2, (long long)E * C, (T + plan[0] - 1) / plan[0], st);
+  return wm::sum_into(part_db2, db2, (long long)E * C, (T + plan[0] - 1) / plan[0], st);
 }
 
-// dW1s [C, E*F] (expert e's dW1 in columns e*F ...) and db1 [E*F], fp32
-// (replaces _bwd_dw1_kernel). Scratch: dz [T, E*F] bf16, part_db1
-// [ceil(T / plan[0]), E*F] fp32, ws_w [plan[3], C, E*F] fp32 (null when
-// plan[3] == 1).
-int moegan_moe_bwd_dw1(const void* x, const void* fw, const void* cw, const void* tl,
-                       const void* inv_temp, const void* w1, const void* b1, const void* w2,
-                       const void* dout, void* dz, void* part_db1, void* ws_w, void* dw1s,
-                       void* db1, int T, int C, int Hd, int E, int F, const int* plan,
+// dW1 transposed, dw1t [E, F, C], and db1 [E, F], fp32 (replaces
+// _bwd_dw1_kernel), given the soft routing probs [T, E] fp32. plan: (token
+// tile, splits, T ranges, tokens a range, scratch route: C > 256) from
+// ops/fused_moe.py::legacy_plan. Scratch (null where the plan does not use
+// it): on the scratch route dz [T, E*F] bf16 and ws_db1 [ceil(T / plan[0]),
+// E*F] fp32; on the recompute route ws_db1 [plan[2], E*F] when plan[2] > 1;
+// ws_w [plan[2], E*F*C] fp32 when plan[2] > 1.
+int moegan_moe_bwd_dw1(const void* x, const void* probs, const void* w1, const void* b1,
+                       const void* w2, const void* dout, void* dz, void* ws_db1, void* ws_w,
+                       void* dw1t, void* db1, int T, int C, int E, int F, const int* plan,
                        void* stream) {
+  if (!widths_ok(T, C, E, F)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (plan[3] > 1 && ws_w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int err = launch_legacy_token<kDw1>(x, fw, cw, tl, inv_temp, w1, b1, w2, nullptr, dout,
-                                      nullptr, nullptr, dz, nullptr, part_db1, T, C, Hd, E, F,
-                                      plan, st);
-  if (err) return err;
-  if ((err = wgrad(x, C, dz, E * F, ws_w, dw1s, T, C, E * F, plan[3], st))) return err;
-  return sum_into(part_db1, db1, (long long)E * F, (T + plan[0] - 1) / plan[0], st);
+#define MOE_DW1(CP) \
+  launch_dw1<CP>(x, probs, w1, b1, w2, dout, dz, ws_db1, ws_w, dw1t, db1, T, C, E, F, plan, st)
+  switch (padded_width(C)) {
+    case 32: return MOE_DW1(32);
+    case 64: return MOE_DW1(64);
+    case 128: return MOE_DW1(128);
+    case 256: return MOE_DW1(256);
+    default: return MOE_DW1(512);
+  }
+#undef MOE_DW1
 }
 
 }  // extern "C"

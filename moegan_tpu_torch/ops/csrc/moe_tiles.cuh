@@ -1,6 +1,8 @@
-// Register-tile building blocks shared by fused_moe.cu and fused_moe_bwd.cu:
-// the block shapes of each padded width, the staging of token and weight
-// tiles, the warp products and the erf-GELU.
+// Register-tile building blocks shared by fused_moe.cu, fused_moe_bwd.cu and
+// fused_moe_legacy.cu: the block shapes of each padded width, the staging of
+// token and weight tiles, the warp products, the erf-GELU, and the pieces of
+// the weight gradients (the recompute block's shape and db1 sums, the
+// scratch route's tiled product).
 //
 // Widths. A kernel is compiled for a padded width CP in {32, 64, 128, 256,
 // 512} and takes any C <= CP that is a multiple of 16: shared tiles are
@@ -155,6 +157,107 @@ __device__ __forceinline__ void packed_a(uint32_t (&a)[4], const uint32_t (&p)[N
   a[1] = p[2 * ks][1];
   a[2] = p[2 * ks + 1][0];
   a[3] = p[2 * ks + 1][1];
+}
+
+// The recompute route's weight-gradient block: FW = 64 hidden units of one
+// expert (4 m-tiles of 16), 8 warps. Warp (mw = warp / KS, kw = warp % KS)
+// takes m-tile mw and, in each group of BTK tokens, the tokens kw * 16..
+struct WTile {
+  static constexpr int FW = 64, MF = FW / 16, NW = 8, NT = 32 * NW, KS = NW / MF;
+  static constexpr int BTK = 16 * KS;
+};
+
+// db1 of a WTile block's hidden units f0 .. f0 + FW - 1: each warp's sums
+// r[0] (unit mw * 16 + g) and r[1] (+ 8) over its tokens, added over the
+// quad, then over the KS token groups in order through red [KS][FW]; out[f]
+// for the units f < F. Every thread of the block calls it.
+__device__ __forceinline__ void wtile_unit_sums(float (&r)[2], float* red, float* out, int f0,
+                                                int F) {
+  using W = WTile;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, tq = lane & 3;
+  const int mw = warp / W::KS, kw = warp % W::KS, FW = W::FW;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    r[half] += __shfl_xor_sync(0xffffffffu, r[half], 1);
+    r[half] += __shfl_xor_sync(0xffffffffu, r[half], 2);
+  }
+  if (tq == 0) {  // hidden units mw * 16 + g (+ 8), token group kw
+    red[kw * FW + mw * 16 + g] = r[0];
+    red[kw * FW + mw * 16 + g + 8] = r[1];
+  }
+  __syncthreads();
+  if (tid < FW && f0 + tid < F) {
+    float sum = 0.f;
+    for (int k = 0; k < W::KS; ++k) sum += red[k * FW + tid];
+    out[f0 + tid] = sum;
+  }
+}
+
+// The scratch route's tiled product: out[M, N] = A[tb:te]^T B[tb:te] for
+// bf16 row-major A [T, M] and B [T, N], out fp32 row-major. Block x owns a
+// [GBM, GBN] output tile, kept in registers (8 warps of 32 x 64, 64 a
+// thread) while the block walks its tokens GBK at a time, A and B
+// double-buffered by cp.async; A^T's fragments come by ldmatrix.trans. Run
+// by 256 threads.
+constexpr int GBM = 128, GBN = 128, GBK = 32;
+
+__device__ __forceinline__ void wgrad_gemm_tile(const bf16* __restrict__ A,
+                                                const bf16* __restrict__ B,
+                                                float* __restrict__ out, int M, int N, int tb,
+                                                int te) {
+  __shared__ __align__(128) bf16 sA[2][GBK * pitch(GBM)];
+  __shared__ __align__(128) bf16 sB[2][GBK * pitch(GBN)];
+  const int ntn = (N + GBN - 1) / GBN;
+  const int m0 = (blockIdx.x / ntn) * GBM, n0 = (blockIdx.x % ntn) * GBN;
+  const int ntile = te > tb ? (te - tb + GBK - 1) / GBK : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
+  const int wm = (warp % 4) * 32, wn = (warp / 4) * 64;
+
+  auto issue = [&](int j) {
+    stage_tile<GBK, GBM, 256>(sA[j & 1], A, M, tb + j * GBK, te, m0, M);
+    stage_tile<GBK, GBN, 256>(sB[j & 1], B, N, tb + j * GBK, te, n0, N);
+    cp_async_commit();
+  };
+  float acc[2][8][4];
+  zero_tiles(acc[0]);
+  zero_tiles(acc[1]);
+  if (ntile > 0) issue(0);
+  for (int j = 0; j < ntile; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    if (j + 1 < ntile) issue(j + 1);
+#pragma unroll
+    for (int ks = 0; ks < GBK / 16; ++ks) {
+      uint32_t a[2][4];
+      load_at<GBM>(a[0], sA[j & 1], wm, ks * 16);
+      load_at<GBM>(a[1], sA[j & 1], wm + 16, ks * 16);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        load_b<GBN>(b, sB[j & 1], ks * 16, wn + np * 16);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma(acc[mi][2 * np], a[mi], b[0], b[1]);
+          mma(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mi * 16 + g + 8 * half;
+      if (m >= M) continue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = n0 + wn + n * 8 + 2 * tq;
+        if (c < N)
+          *reinterpret_cast<float2*>(out + (long long)m * N + c) =
+              make_float2(acc[mi][n][2 * half], acc[mi][n][2 * half + 1]);
+      }
+    }
+  }
 }
 
 }  // namespace moe

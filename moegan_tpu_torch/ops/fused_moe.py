@@ -41,9 +41,12 @@ The legacy three-kernel backward of the JAX package (`MOEGAN_PALLAS_MOE_BWD=3`)
 replaces its TPU kernels `_bwd_dx_kernel`, `_bwd_dw2_kernel` and
 `_bwd_dw1_kernel` (launched by `_fused_moe_bwd_pallas`) with three entry
 points of `csrc/fused_moe_legacy.cu`: `moe_bwd_dx`, `moe_bwd_dw2` and
-`moe_bwd_dw1`, each recomputing the routing, z and h for itself and
-rounding where its TPU kernel rounds (plain twins `moe_bwd_dx_reference`,
-`moe_bwd_dw2_reference`, `moe_bwd_dw1_reference`).
+`moe_bwd_dw1`, each recomputing z and h for itself and rounding where its
+TPU kernel rounds (plain twins `moe_bwd_dx_reference`,
+`moe_bwd_dw2_reference`, `moe_bwd_dw1_reference`). dW2 recomputes the
+routing too; dx and dW1 take the forward's (`probs=`, as `FusedMoEFunction`
+passes it) or compute it first. Their plans (`legacy_plan`) are pure Python
+as well; dW2's comes from its C entry point.
 
 `FusedMoEFunction.backward` and `MoECombineFunction.backward` read
 `MOEGAN_PALLAS_MOE_BWD` at call time, as the JAX package reads it at trace
@@ -411,14 +414,18 @@ def _bwd_buffers(x, E: int, F: int):
     nbias = -(-T // plan.block_t) if plan.scratch else plan.t_ranges
     bias = plan.scratch or ranges
 
-    def maybe(use, shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=x.device) if use else None
-
-    scratch = (maybe(plan.scratch, (T, E * F), x.dtype), maybe(plan.scratch, (T, E * F), x.dtype),
-               maybe(split, (plan.splits, T, C)), maybe(split, (plan.splits, T, E)),
-               maybe(ranges, (plan.t_ranges, E, F, C)), maybe(ranges, (plan.t_ranges, E, F, C)),
-               maybe(bias, (nbias, E, F)), maybe(bias, (nbias, E, C)))
+    scratch = (_maybe(plan.scratch, (T, E * F), x, x.dtype),
+               _maybe(plan.scratch, (T, E * F), x, x.dtype),
+               _maybe(split, (plan.splits, T, C), x), _maybe(split, (plan.splits, T, E), x),
+               _maybe(ranges, (plan.t_ranges, E, F, C), x),
+               _maybe(ranges, (plan.t_ranges, E, F, C), x),
+               _maybe(bias, (nbias, E, F), x), _maybe(bias, (nbias, E, C), x))
     return plan, scratch, outs
+
+
+def _maybe(use: bool, shape, like, dtype=torch.float32):
+    """An uninitialised buffer on `like`'s device, or None when not `use`d."""
+    return torch.empty(shape, dtype=dtype, device=like.device) if use else None
 
 
 def _bwd_outputs(outs):
@@ -428,72 +435,113 @@ def _bwd_outputs(outs):
 
 # --- the legacy three-kernel backward: the CUDA entry points ------------------------------
 
-_LEGACY_MODES = {"dx": 0, "dw2": 1, "dw1": 2}
+
+def legacy_plan(which: str, T: int, C: int, F: int, E: int, sms: int) -> MoeBwdPlan:
+    """The launches of the legacy entry point `which` ("dx" or "dw1") at one
+    shape (T >= 1): the token kernel's tile and splits; for dW1 its route and
+    the T ranges of its weight-gradient kernel. The route: dz recomputed per
+    (expert, 64 hidden units) block up to C = 256, or above it bf16 dz
+    through a [T, E*F] scratch and a tiled product."""
+    bt = _token_tile(C)
+    splits = _splits(-(-T // bt), E * -(-F // _FC), sms)
+    if which == "dx":
+        return MoeBwdPlan(bt, splits, 1, T, False)
+    scratch = padded_width(C) > 256
+    # the product's blocks for each T range: 128 x 128 tiles of dW1^T [E*F, C],
+    # or one a (expert, 64 hidden units); a range is whole steps of the kernel
+    grid = -(-E * F // 128) * -(-C // 128) if scratch else E * -(-F // 64)
+    step = _WGRAD_TILE if scratch else _recompute_step(C)
+    ranges = min(_splits(grid, T, sms), -(-T // step))
+    t_range = -(-(-(-T // ranges)) // step) * step
+    return MoeBwdPlan(bt, splits if scratch else 1, -(-T // t_range), t_range, scratch)
 
 
-def legacy_kernel_plan(which: str, T: int, C: int, F: int, E: int, device) -> tuple[int, ...]:
-    """(token tile, F-chunk, splits, weight-gradient T-splits) of a legacy entry point."""
-    return _legacy_plan(_LEGACY_MODES[which], T, C, F, E, _sm_count(torch.device(device)))
+def _recompute_step(C: int) -> int:
+    """Tokens a stage of dW1's recompute kernel (`recompute_step` of
+    csrc/fused_moe_legacy.cu)."""
+    return 128 if padded_width(C) == 32 else 32
+
+
+def legacy_kernel_plan(which: str, T: int, C: int, F: int, E: int, device) -> tuple:
+    """The plan of a legacy entry point on `device`: `legacy_plan` for "dx" and
+    "dw1"; for "dw2" (token tile, F-chunk, splits, weight-gradient T-splits)."""
+    sms = _sm_count(torch.device(device))
+    if which == "dw2":
+        return _dw2_plan(T, C, F, E, sms)
+    return tuple(legacy_plan(which, T, C, F, E, sms))
 
 
 @functools.lru_cache(maxsize=None)
-def _legacy_plan(mode: int, T: int, C: int, F: int, E: int, sms: int) -> tuple[int, ...]:
+def _dw2_plan(T: int, C: int, F: int, E: int, sms: int) -> tuple[int, ...]:
     lib = _build.load("fused_moe_legacy")
     plan = (ctypes.c_int * 4)()
-    fn = lib.moegan_moe_legacy_plan
+    fn = lib.moegan_moe_bwd_dw2_plan
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-    if not fn(mode, T, C, F, E, sms, plan):
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    if not fn(T, C, F, E, sms, plan):
         raise ValueError(f"no tile fits shared memory at C={C}, F={F}, E={E}")
     return tuple(plan)
 
 
-def _legacy_inputs(which, x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
+_LEGACY_ARGS = (_P,) * 11 + (_I,) * 4 + (ctypes.POINTER(ctypes.c_int), _P)
+_DW2_ARGS = (_P,) * 14 + (_I,) * 5 + (ctypes.POINTER(ctypes.c_int), _P)
+
+
+def _legacy_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
     """Check the inputs of a legacy entry point on CUDA (w2 and b2 None where it
-    reads none); returns (plan, its input tensors in the C entry point's order,
-    inv_temp as [1] and dout in x's dtype)."""
+    reads none); returns inv_temp as [1] and dout in x's dtype."""
     inv_temp = inv_temp.reshape(1)
     _check_cuda_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2)
     dout = dout.to(x.dtype).contiguous()
     if dout.shape != x.shape:
         raise ValueError(f"dout: want {tuple(x.shape)}, got {tuple(dout.shape)}")
-    T, C = x.shape
-    E, _, F = w1.shape
-    inputs = [t for t in (x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout)
-              if t is not None]
-    return legacy_kernel_plan(which, T, C, F, E, x.device), inputs
+    return inv_temp, dout
 
 
-def _legacy_run(which, plan, inputs, buffers):
-    """Launch `moegan_moe_bwd_<which>` on its inputs (x, fw and w1 first) and
-    buffers (scratch then outputs; None for an unused scratch)."""
-    x, fw, w1 = inputs[0], inputs[1], inputs[5]
-    T, C = x.shape
-    E, _, F = w1.shape
-    lib = _build.load("fused_moe_legacy")
-    fn = getattr(lib, f"moegan_moe_bwd_{which}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (len(inputs) + len(buffers)) + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    rc = fn(*_ptrs(*inputs, *buffers), T, C, fw.shape[-1], E, F, (ctypes.c_int * 4)(*plan),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, f"moe_bwd_{which}")
+def _legacy_probs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, probs):
+    """The soft routing [T, E] that dx and dW1 read: `probs` (the forward's,
+    checked) or, when None, the forward kernel's, as `fused_moe_bwd` takes it."""
+    T, E = text_logits.shape
+    if probs is None:
+        # the routing does not read the output bias
+        b2 = torch.zeros((E, x.shape[1]), dtype=torch.float32, device=x.device)
+        probs = fused_moe_ffn(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2)[1]
+    _check_tensors(dict(x=(x, x.dtype, x.shape), w1=(w1, w1.dtype, w1.shape),
+                        probs=(probs, torch.float32, (T, E))))
+    return probs
 
 
-def moe_bwd_dx(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
+def _legacy_launch(name: str, plan, ptr_tensors, T, C, E, F, device) -> None:
+    lib, fn = _build.entry("fused_moe_legacy", f"moegan_moe_bwd_{name}", _LEGACY_ARGS)
+    ints = [int(v) for v in plan]
+    rc = fn(*_ptrs(*ptr_tensors), T, C, E, F, (ctypes.c_int * len(ints))(*ints),
+            torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, rc, f"moe_bwd_{name}")
+
+
+def moe_bwd_dx(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout, probs=None):
     """(dx_ffn [T, C], dp [T, E]) in fp32 through the kernel that replaces
-    `_bwd_dx_kernel`, as `moe_bwd_dx_reference`. Inputs as `fused_moe_bwd`."""
+    `_bwd_dx_kernel`, as `moe_bwd_dx_reference`. Inputs as `fused_moe_bwd`:
+    the kernel reads the soft routing `probs` [T, E] (the forward's, as
+    `FusedMoEFunction` passes it) or, when None, the forward kernel's routing
+    computed here. The plain version recomputes it either way."""
     if x.device.type == "cpu":
         return moe_bwd_dx_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout)
     if x.device.type != "cuda":
         raise ValueError(f"moe_bwd_dx runs on cpu or cuda tensors, got {x.device}")
-    plan, inputs = _legacy_inputs("dx", x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout)
+    inv_temp, dout = _legacy_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout)
     T, C = x.shape
-    E = w1.shape[0]
+    E, _, F = w1.shape
     f32 = dict(dtype=torch.float32, device=x.device)
-    ws_dx, ws_dp = torch.empty((plan[2], T, C), **f32), torch.empty((plan[2], T, E), **f32)
+    if T == 0:
+        return torch.zeros((T, C), **f32), torch.zeros((T, E), **f32)
     dx, dp = torch.empty((T, C), **f32), torch.empty((T, E), **f32)
-    _legacy_run("dx", plan, inputs, (ws_dx, ws_dp, dx, dp))
+    probs = _legacy_probs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, probs)
+    plan = legacy_plan("dx", T, C, F, E, _sm_count(x.device))
+    split = plan.splits > 1
+    ws_dx, ws_dp = _maybe(split, (plan.splits, T, C), x), _maybe(split, (plan.splits, T, E), x)
+    _legacy_launch("dx", plan[:2], (x, probs, w1, b1, w2, b2, dout, ws_dx, ws_dp, dx, dp),
+                   T, C, E, F, x.device)
     moe_bwd_dx.launches += 1
     return dx, dp
 
@@ -508,17 +556,21 @@ def moe_bwd_dw2(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout):
         return moe_bwd_dw2_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout)
     if x.device.type != "cuda":
         raise ValueError(f"moe_bwd_dw2 runs on cpu or cuda tensors, got {x.device}")
-    plan, inputs = _legacy_inputs("dw2", x, fw, cw_f, text_logits, inv_temp, w1, b1, None,
-                                  None, dout)
+    inv_temp, dout = _legacy_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, None, None, dout)
     T, C = x.shape
     E, _, F = w1.shape
+    plan = legacy_kernel_plan("dw2", T, C, F, E, x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     bf = dict(dtype=x.dtype, device=x.device)
     h, dy = torch.empty((T, E * F), **bf), torch.empty((T, E * C), **bf)
     part = torch.empty((-(-T // plan[0]), E * C), **f32)
-    ws_w = torch.empty((E, plan[3], F, C), **f32) if plan[3] > 1 else None
+    ws_w = _maybe(plan[3] > 1, (E, plan[3], F, C), x)
     dw2, db2 = torch.empty((E, F, C), **f32), torch.empty((E, C), **f32)
-    _legacy_run("dw2", plan, inputs, (h, dy, part, ws_w, dw2, db2))
+    lib, fn = _build.entry("fused_moe_legacy", "moegan_moe_bwd_dw2", _DW2_ARGS)
+    rc = fn(*_ptrs(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout, h, dy, part, ws_w, dw2, db2),
+            T, C, fw.shape[-1], E, F, (ctypes.c_int * 4)(*plan),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "moe_bwd_dw2")
     moe_bwd_dw2.launches += 1
     return dw2, db2
 
@@ -526,25 +578,32 @@ def moe_bwd_dw2(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout):
 moe_bwd_dw2.launches = 0
 
 
-def moe_bwd_dw1(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, dout):
-    """(dW1 [E, C, F], db1 [E, F]) in fp32 through the kernel that replaces
-    `_bwd_dw1_kernel`, as `moe_bwd_dw1_reference`."""
+def moe_bwd_dw1(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, dout, probs=None):
+    """(dW1 [E, C, F], db1 [E, F]) in fp32 through the kernels that replace
+    `_bwd_dw1_kernel`, as `moe_bwd_dw1_reference`. `probs` as `moe_bwd_dx`;
+    the route by width (`legacy_plan`)."""
     if x.device.type == "cpu":
         return moe_bwd_dw1_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, dout)
     if x.device.type != "cuda":
         raise ValueError(f"moe_bwd_dw1 runs on cpu or cuda tensors, got {x.device}")
-    plan, inputs = _legacy_inputs("dw1", x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, None,
-                                  dout)
+    inv_temp, dout = _legacy_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, None, dout)
     T, C = x.shape
     E, _, F = w1.shape
     f32 = dict(dtype=torch.float32, device=x.device)
-    dz = torch.empty((T, E * F), dtype=x.dtype, device=x.device)
-    part = torch.empty((-(-T // plan[0]), E * F), **f32)
-    ws_w = torch.empty((plan[3], C, E * F), **f32) if plan[3] > 1 else None
-    dw1s, db1 = torch.empty((C, E * F), **f32), torch.empty((E, F), **f32)
-    _legacy_run("dw1", plan, inputs, (dz, part, ws_w, dw1s, db1))
+    if T == 0:
+        return torch.zeros((E, C, F), **f32), torch.zeros((E, F), **f32)
+    dw1t, db1 = torch.empty((E, F, C), **f32), torch.empty((E, F), **f32)
+    probs = _legacy_probs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, probs)
+    plan = legacy_plan("dw1", T, C, F, E, _sm_count(x.device))
+    # the db1 partials: one row a token tile (scratch route) or a T range
+    nbias = -(-T // plan.block_t) if plan.scratch else plan.t_ranges
+    dz = _maybe(plan.scratch, (T, E * F), x, x.dtype)
+    ws_db1 = _maybe(nbias > 1, (nbias, E * F), x)
+    ws_w = _maybe(plan.t_ranges > 1, (plan.t_ranges, E * F * C), x)
+    _legacy_launch("dw1", plan, (x, probs, w1, b1, w2, dout, dz, ws_db1, ws_w, dw1t, db1),
+                   T, C, E, F, x.device)
     moe_bwd_dw1.launches += 1
-    return dw1s.reshape(C, E, F).permute(1, 0, 2), db1
+    return dw1t.transpose(1, 2), db1
 
 
 moe_bwd_dw1.launches = 0
@@ -589,9 +648,9 @@ class FusedMoEFunction(torch.autograd.Function):
             return _recompute_grads(lambda *a: moe_ffn_reference(*a, hard=False), saved,
                                     (dout, dprobs))
         if mode == "3":
-            dx_ffn, dp = moe_bwd_dx(x, fw, cw_f, tl, it, w1, b1, w2, b2, dout)
+            dx_ffn, dp = moe_bwd_dx(x, fw, cw_f, tl, it, w1, b1, w2, b2, dout, probs=probs)
             dw2, db2 = moe_bwd_dw2(x, fw, cw_f, tl, it, w1, b1, dout)
-            dw1, db1 = moe_bwd_dw1(x, fw, cw_f, tl, it, w1, b1, w2, dout)
+            dw1, db1 = moe_bwd_dw1(x, fw, cw_f, tl, it, w1, b1, w2, dout, probs=probs)
         else:
             dx_ffn, dp, dw1, db1, dw2, db2 = fused_moe_bwd(x, fw, cw_f, tl, it, w1, b1, w2, b2,
                                                            dout, probs=probs)

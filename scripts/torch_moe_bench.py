@@ -10,6 +10,13 @@ local experts. Where the tree's `fused_moe_bwd` takes the forward's routing
 (`probs=`, as `FusedMoEFunction` calls it), the backward is also timed so;
 in this tree the call without `probs` first runs the forward kernel for the
 routing.
+The legacy backward's three entry points (`MOEGAN_PALLAS_MOE_BWD=3`) at
+batch 64: `moe_bwd_dx`, `moe_bwd_dw1` and, as the control whose code no
+redesign touched, `moe_bwd_dw2`, each called without the routing (the only
+call every tree takes: the first port's kernels compute it themselves, this
+tree's dx and dW1 run the forward kernel for it); where the tree's dx and
+dW1 take the forward's routing (`probs=`, as `FusedMoEFunction` calls them
+under =3), also so. `--what legacy` times these alone.
 Each is timed with CUDA events over a run of calls (`ms`, the host's cost
 per call included) and as the same calls replayed from one CUDA graph
 (`device_ms`). Inputs are made on the card from a seed.
@@ -95,10 +102,35 @@ def both(fn, reps):
     return {"ms": time_ms(fn, reps), "device_ms": graph_ms(fn, reps)}
 
 
+def add_sums(sums: dict, row: dict) -> None:
+    for key, val in row.items():
+        if isinstance(val, dict):
+            for k, v in val.items():
+                sums[f"{key}_{k}"] = sums.get(f"{key}_{k}", 0.0) + v
+
+
+def legacy_rows(tfm, row, a, dout, C, reps) -> None:
+    """The legacy entry points at one block, batch 64, into `row`."""
+    x = a[0]
+    dx_args, dw1_args, dw2_args = a, a[:8], a[:7]
+    row["legacy_dx"] = both(lambda: tfm.moe_bwd_dx(*dx_args, dout), reps)
+    row["legacy_dw2"] = both(lambda: tfm.moe_bwd_dw2(*dw2_args, dout), reps)
+    row["legacy_dw1"] = both(lambda: tfm.moe_bwd_dw1(*dw1_args, dout), reps)
+    if "probs" in inspect.signature(tfm.moe_bwd_dw1).parameters:
+        p = tfm.fused_moe_ffn(*a, hard=False)[1]
+        row["legacy_dx_given_probs"] = both(lambda: tfm.moe_bwd_dx(*dx_args, dout, probs=p), reps)
+        row["legacy_dw1_given_probs"] = both(
+            lambda: tfm.moe_bwd_dw1(*dw1_args, dout, probs=p), reps)
+        row["legacy_dw1_plan"] = list(tfm.legacy_kernel_plan("dw1", x.shape[0], C, 4 * C, 4,
+                                                             x.device))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE, help="the tree whose moegan_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--what", choices=("all", "legacy"), default="all",
+                    help="all kernels, or the legacy backward's entry points alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -119,6 +151,13 @@ def main() -> None:
         a = moe_args(dev, C, T, seed=res)
         dout = (torch.randn((T, C), device=dev, generator=torch.Generator(device=dev)
                             .manual_seed(res + 1)) * 0.1).to(torch.bfloat16)
+        legacy_rows(tfm, row, a, dout, C, max(2, args.reps // 2))
+        if args.what == "legacy":
+            del a, dout
+            torch.cuda.empty_cache()
+            add_sums(sums, row)
+            print(json.dumps(row), flush=True)
+            continue
         row["fwd_soft_b64"] = both(lambda: tfm.fused_moe_ffn(*a, hard=False), args.reps)
         row["bwd_b64"] = both(lambda: tfm.fused_moe_bwd(*a, dout), max(2, args.reps // 2))
         if "probs" in inspect.signature(tfm.fused_moe_bwd).parameters:
@@ -138,10 +177,7 @@ def main() -> None:
         row["fwd_hard_b16"] = both(lambda: tfm.fused_moe_ffn(*a, hard=True), args.reps)
         del a
         torch.cuda.empty_cache()
-        for key, val in row.items():
-            if isinstance(val, dict):
-                for k, v in val.items():
-                    sums[f"{key}_{k}"] = sums.get(f"{key}_{k}", 0.0) + v
+        add_sums(sums, row)
         print(json.dumps(row), flush=True)
     print(json.dumps({"sums_over_five_blocks": sums, "device": smi}), flush=True)
 

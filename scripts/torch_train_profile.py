@@ -83,6 +83,10 @@ def main() -> None:
         # the fused-MoE kernels (every kernel of ops/csrc/fused_moe*.cu names "moe")
         "moe_device_ms": sum(e.self_device_time_total for e in events
                              if "moe" in e.key) / 1e3,
+        # their backward alone: all but the forward's two kernels
+        "moe_bwd_device_ms": sum(e.self_device_time_total for e in events
+                                 if "moe" in e.key and "moe_fwd_kernel" not in e.key
+                                 and "moe_split_sum_kernel" not in e.key) / 1e3,
         "kernel_launches": sum(e.count for e in events),
         "kernels": [{"name": e.key[:90], "calls": e.count,
                      "device_ms": e.self_device_time_total / 1e3} for e in top],

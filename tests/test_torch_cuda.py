@@ -234,21 +234,34 @@ def test_layer_norm_kernels_match_plain_on_card(cuda_device, N, C, dtype):
                                    atol=lim * c.float().abs().max().item(), msg=name)
 
 
+# Every padded width (C = 32-512 and C = 48, padded to 64, and C = 16,
+# padded to 32), each with the dW1 route its width takes (recompute up to
+# C = 256, scratch above); T ragged against the token tiles (32 at C = 512,
+# else 64) and the 32- and 128-token steps; F = 80 leaves a partial 64-unit
+# chunk.
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,T", [(512, 100), (32, 1000)])
-def test_legacy_moe_bwd_kernels_match_plain_on_card(cuda_device, C, T):
-    a = moe_inputs(seed=C + 2, T=T, C=C, F=4 * C, h=128)
+@pytest.mark.parametrize("C,T,F", [(512, 100, 2048), (256, 333, 1024), (128, 1000, 512),
+                                   (64, 777, 256), (48, 130, 80), (32, 1000, 128),
+                                   (16, 77, 64)])
+def test_legacy_moe_bwd_kernels_match_plain_on_card(cuda_device, C, T, F):
+    a = moe_inputs(seed=C + 2, T=T, C=C, F=F, h=128)
     bf = {"x", "fw", "w1", "w2"}
     args = [t(a[k]).to(cuda_device, torch.bfloat16 if k in bf else torch.float32)
             if k != "inv_temp" else torch.full((1,), a[k], device=cuda_device) for k in MOE_ORDER]
     x, fw, cw, tl, it, w1, b1, w2, b2 = args
     g = torch.Generator(device=cuda_device).manual_seed(C + 1)
     dout = torch.randn((T, C), generator=g, device=cuda_device).to(torch.bfloat16)
-    for name, fn, ref, inputs in (
-            ("dx", tfm.moe_bwd_dx, tfm.moe_bwd_dx_reference, args),
-            ("dw2", tfm.moe_bwd_dw2, tfm.moe_bwd_dw2_reference, args[:7]),
-            ("dw1", tfm.moe_bwd_dw1, tfm.moe_bwd_dw1_reference, args[:8])):
-        got, again, want = fn(*inputs, dout), fn(*inputs, dout), ref(*inputs, dout)
+    # the forward's routing, as FusedMoEFunction hands it to dx and dW1
+    probs = tfm.fused_moe_ffn(*args, hard=False)[1]
+    assert tfm.legacy_kernel_plan("dw1", T, C, F, 4, cuda_device)[4] == (C > 256)
+    for name, fn, ref, inputs, kw in (
+            ("dx", tfm.moe_bwd_dx, tfm.moe_bwd_dx_reference, args, dict(probs=probs)),
+            ("dw2", tfm.moe_bwd_dw2, tfm.moe_bwd_dw2_reference, args[:7], {}),
+            ("dw1", tfm.moe_bwd_dw1, tfm.moe_bwd_dw1_reference, args[:8], dict(probs=probs))):
+        if kw:  # without probs, the entry point takes the same routing from the forward kernel
+            for u, v in zip(fn(*inputs, dout), fn(*inputs, dout, **kw)):
+                assert torch.equal(u, v), f"{name}: the call without probs differs"
+        got, again, want = fn(*inputs, dout, **kw), fn(*inputs, dout, **kw), ref(*inputs, dout)
         torch.cuda.synchronize()
         for i, (u, v, w) in enumerate(zip(got, again, want)):
             assert torch.equal(u, v), f"{name}[{i}]: two calls differ"
