@@ -61,10 +61,11 @@ failure (non-zero exit, no result line):
    (a) both LayerNorm kernels against their plain twins at the five norm
    shapes of the step at batch 64, two calls bit-identical, times beside
    `F.layer_norm`'s; (b) the three legacy MoE backward entry points, each
-   against its own plain twin at the five MoE blocks (dx and dW1 with the
+   against its own plain twin at the five MoE blocks (each with the
    forward's routing, as the step launches them), two calls bit-identical,
    with times, device times, bounds, GELU floors and each block's plan
-   (dW1's route), and `FusedMoEFunction`'s gradients under =3 against =1;
+   (dW1's and dW2's routes), and `FusedMoEFunction`'s gradients under =3
+   against =1;
    (c) 5 training steps at batch 64 (launches 6 / 3 flash, 10 fused MoE forwards, 0 fused MoE
    backwards, 5 of each legacy entry point, 20 / 10 LayerNorm) and the
    batch-4 step against the CPU's under the same flags, to phase 7's
@@ -1379,8 +1380,8 @@ LEGACY_UNITS = {"moe_bwd_dx": 8.0, "moe_bwd_dw2": 4.0, "moe_bwd_dw1": 6.0}
 def legacy_moe_phase(dev, tfm):
     """(b) The three legacy MoE backward entry points, each against its own
     plain twin at the five MoE blocks of the step at batch 64, two calls
-    bit-identical; dx and dW1 with the forward's routing, as the step
-    launches them; then `FusedMoEFunction`'s nine gradients under
+    bit-identical; each with the forward's routing, as the step launches
+    them; then `FusedMoEFunction`'s nine gradients under
     MOEGAN_PALLAS_MOE_BWD=3 against those under =1."""
     rows = {name: [] for name in LEGACY_UNITS}
     names = ("x", "fw", "cw_f", "text_logits", "inv_temp", "w1", "b1", "w2", "b2")
@@ -1392,22 +1393,20 @@ def legacy_moe_phase(dev, tfm):
         dprobs = torch.randn((T, E), generator=g, device=dev) * 0.1
         x, fw, cw, tl, it, w1, b1, w2, b2 = args
         probs = tfm.fused_moe_ffn(*args, hard=False)[1]  # the forward's routing
-        router = C * fw.shape[1] * 2 + fw.shape[1] * E * 4 + T * E * 4 + 4
         weights = E * C * F_ * 2 + E * F_ * 4
         for name, fn, ref, inputs, nbytes in (
                 ("moe_bwd_dx", tfm.moe_bwd_dx, tfm.moe_bwd_dx_reference, args,
                  # x, dout, probs read; W1, b1, W2, b2 read; dx and dp written (fp32)
                  2 * T * C * 2 + T * E * 4 + 2 * weights + E * C * 4 + T * C * 4 + T * E * 4),
                 ("moe_bwd_dw2", tfm.moe_bwd_dw2, tfm.moe_bwd_dw2_reference, args[:7],
-                 # x, dout, the router's inputs, W1, b1 read; dW2 and db2 written (fp32)
-                 2 * T * C * 2 + router + weights + E * F_ * C * 4 + E * C * 4),
+                 # x, dout, probs, W1, b1 read; dW2 and db2 written (fp32)
+                 2 * T * C * 2 + T * E * 4 + weights + E * F_ * C * 4 + E * C * 4),
                 ("moe_bwd_dw1", tfm.moe_bwd_dw1, tfm.moe_bwd_dw1_reference, args[:8],
                  # x, dout, probs, W1, b1, W2 read; dW1 and db1 written (fp32)
                  2 * T * C * 2 + T * E * 4 + weights + E * F_ * C * 2 + E * C * F_ * 4
                  + E * F_ * 4)):
-            # As FusedMoEFunction launches them under =3: dx and dW1 with the
-            # forward's routing, dW2 computing its own.
-            kw = {} if name == "moe_bwd_dw2" else {"probs": probs}
+            # As FusedMoEFunction launches them under =3: with the forward's routing.
+            kw = {"probs": probs}
             want = ref(*inputs, dout)
             errs = {}
             got, again = fn(*inputs, dout, **kw), fn(*inputs, dout, **kw)
@@ -1428,15 +1427,16 @@ def legacy_moe_phase(dev, tfm):
             b_ms, b_by = bound_ms(flops, float(nbytes))
             plan = tfm.legacy_kernel_plan(name[8:], T, C, F_, E, dev)
             extra = {}
-            if name == "moe_bwd_dw1":
-                extra["route"] = "scratch" if plan[4] else "recompute"
+            if name != "moe_bwd_dx":
+                extra["route"] = "scratch" if plan.scratch else "recompute"
             rows[name].append(dict(res=res, T=T, C=C, F=F_, E=E,
                                    max_abs_err=max(e for e, _ in errs.values()),
                                    max_rel_err=max(e / max(r, 1e-30) for e, r in errs.values()),
                                    errs=errs, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                                    flops=flops, bytes=float(nbytes), bound_ms=b_ms,
                                    bound_by=b_by,
-                                   # T*E*F GELUs (with gelu' in dx and dW1), 2 SFU
+                                   # T*E*F GELUs in each entry point (with gelu'
+                                   # in dx and dW1, without in dW2), 2 SFU
                                    # operations each
                                    gelu_floor_ms=exp_floor_ms(2.0 * T * E * F_),
                                    plan=list(plan), **extra))
@@ -1875,7 +1875,8 @@ def main() -> None:
             "train_fwd_set_device_ms": total(moe_bwd_rows, "fwd_device_ms"),
         },
         "fused_moe_bwd": {"device_ms": total(moe_bwd_rows, "device_ms")},
-        # dx and dW1 with the forward's routing, as FusedMoEFunction launches them under =3
+        # the legacy entry points with the forward's routing, as FusedMoEFunction
+        # launches them under =3
         **{name: {"device_ms": total(rows, "device_ms")} for name, rows in legacy_rows.items()},
     }
     for name, rows, src, replaces, lib, shapes in (

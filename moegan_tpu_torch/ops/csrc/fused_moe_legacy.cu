@@ -11,23 +11,25 @@
 //       dW1_e = x^T bf16(dz_e),            db1_e = sum_t dz_e
 //
 // for each token and expert: p the soft routing, z = x W1_e + b1_e (fp32),
-// h = bf16(gelu(z)) (erf by Abramowitz-Stegun 7.1.26 in dx and dW1, as the
-// TPU kernels; erff in dW2), dy_e = bf16(p_e dout), dh = dy_e W2_e^T and
-// dz = dh gelu'(z). dx and dW1 read the routing the caller hands them (the
-// forward's, as FusedMoEFunction passes it; ops/fused_moe.py runs the
-// forward kernel for it when the caller has none), where each TPU kernel
-// recomputes it; dW2 recomputes it with its own router. (The default
-// backward, fused_moe_bwd.cu, rounds p h where these round p dout, so the two
-// backwards differ by bf16 rounding.) dp is computed as sum_f g h + dout .
-// b2_e with g = dout W2_e^T. Every fp32 sum runs in a fixed order and no
-// kernel uses atomics: two calls give the same bits.
+// h = bf16(gelu(z)) (erf by Abramowitz-Stegun 7.1.26, moe_tiles.cuh's
+// gelu_cdf, as the TPU kernels), dy_e = bf16(p_e dout), dh = dy_e W2_e^T and
+// dz = dh gelu'(z); db2 adds p_e dout in fp32 before dy's rounding, as the
+// TPU kernel sums dy before its cast. Every entry point reads the routing the
+// caller hands it (the forward's, as FusedMoEFunction passes it;
+// ops/fused_moe.py runs the forward kernel for it when the caller has none),
+// where each TPU kernel recomputes it. (The default backward,
+// fused_moe_bwd.cu, rounds p h where these round p dout, so the two backwards
+// differ by bf16 rounding.) dp is computed as sum_f g h + dout . b2_e with
+// g = dout W2_e^T. Every fp32 sum runs in a fixed order and no kernel uses
+// atomics: two calls give the same bits.
 //
-// What bounds dx and dW1 on the H100: their products, 8 (dx: z, g, dh and
-// dz W1^T) and 6 (dW1: z, dh and x^T dz) x T*C*F*E FLOPs (34.4 and 25.8
-// GFLOP a block of the 64x64 generator at batch 64, 0.035 and 0.026 ms at
-// 989 TFLOP/s), and T*E*F GELUs with their derivative (one reciprocal and
-// one ex2 each, shared); at C = 32-64 the ~25 FP32 instructions of each
-// hidden unit outweigh its products. The design, on moe_tiles.cuh's tiles:
+// What bounds them on the H100: their products, 8 (dx: z, g, dh and dz W1^T),
+// 4 (dW2: z and h^T dy) and 6 (dW1: z, dh and x^T dz) x T*C*F*E FLOPs (34.4,
+// 17.2 and 25.8 GFLOP a block of the 64x64 generator at batch 64, 0.035, 0.017
+// and 0.026 ms at 989 TFLOP/s), and T*E*F GELUs (one reciprocal and one ex2
+// each, shared with the derivative in dx and dW1); at C = 32-64 the ~25 FP32
+// instructions of each hidden unit outweigh its products. One set of tiles,
+// moe_tiles.cuh's, serves the three:
 //
 //   - moe_legacy_token_kernel, block (token tile, split) with the fused
 //     backward's warp layout (Tile<CP>): the x and dout tiles stay in shared
@@ -43,225 +45,29 @@
 //     tiles than SMs the (expert, chunk) loop is split and the partials added
 //     in split order. For dW1's scratch route (C = 512) it writes bf16 dz
 //     [T, E*F] and per-tile fp32 column sums of dz (db1).
-//   - dW1, two routes by padded width. Up to C = 256
-//     moe_dw1_recompute_kernel, block (expert, 64 hidden units, T range),
-//     keeps dW1^T for its units in registers and recomputes z, dh and dz per
-//     stage of tokens: no [T, E*F] scratch (268 MB at res 64). At C = 512,
-//     where [16, C] fp32 sums a warp do not fit in registers, the token
-//     kernel writes bf16 dz [T, E*F] (17 MB there) and moe_dw1_gemm_kernel
-//     forms dW1^T = dz^T x by moe_tiles.cuh's wgrad_gemm_tile (the fused
-//     backward's tiled product). Timed with both routes at every width,
-//     recompute won at each width it takes (PERF.md).
+//   - moe_recompute_kernel, block (expert, 64 hidden units, T range), the
+//     weight gradients up to C = 256 without a [T, E*F] scratch (268 MB at
+//     res 64): it keeps its units' rows of dW1^T or dW2 in registers and
+//     recomputes z (for dW1 also dh and dz) per stage of tokens, bf16 dz or h
+//     packed in registers as the A operand of the product over the stage.
+//   - At C = 512, where a warp's [16, C] fp32 sums do not fit in registers,
+//     a scratch and moe_tiles.cuh's tiled product (wgrad_gemm_tile, the fused
+//     backward's) in moe_gemm_kernel: for dW1 the token kernel writes bf16
+//     dz [T, E*F] (17 MB there) and the product forms dz^T x; for dW2 the
+//     recompute kernel writes h [E, T, F] and dy [E, T, C] and the product
+//     forms h_e^T dy_e for each expert. dW1's two routes were timed against
+//     each other at every width, dW2's scratch route against a recompute in
+//     two blocks of 256 output columns at C = 512 (PERF.md).
 //   - moe_sum_kernel adds split, T-range and tile partials in order.
 //
-// dW2 keeps its first port (namespace wm below: WMMA fragments through
-// shared memory, synchronous staging, its own router). C <= 512 and F
-// multiples of 16, E at most 16; plans come from ops/fused_moe.py
-// (legacy_plan for dx and dW1) and are checked here.
-
-#include <mma.h>
-
-#include <type_traits>
+// C <= 512 and F multiples of 16, E at most 16; plans come from
+// ops/fused_moe.py::legacy_plan and are checked here.
 
 #include "moe_tiles.cuh"
 
 namespace {
 
-// --- dW2: the WMMA kernels ---------------------------------------------------------------
-//
-// Kept in their own namespace, so that their helpers do not meet
-// moe_tiles.cuh's of the same names.
-namespace wm {
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int MAX_E = 16;
-constexpr size_t SMEM_LIMIT = 232448 - 1024;
-constexpr int WT = 64;   // weight-gradient output tile (rows and columns)
-constexpr int WKT = 32;  // tokens per weight-gradient step
-
-__host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
-
-__device__ inline void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ inline void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ inline void zero16(void* dst) { *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0); }
-
-// Cm[M, N] (+)= A[M, K] @ B[K, N] on shared-memory operands: bf16 A and B,
-// each row- or column-major, fp32 row-major Cm; one 16x16 output tile per
-// warp at a time. M, N, K multiples of 16.
-template <typename LayoutA, typename LayoutB>
-__device__ void mma_tiles(const bf16* A, int lda, const bf16* B, int ldb, float* Cm, int ldc,
-                          int M, int N, int K, bool accumulate) {
-  constexpr bool a_row = std::is_same<LayoutA, wmma::row_major>::value;
-  constexpr bool b_row = std::is_same<LayoutB, wmma::row_major>::value;
-  const int warp = threadIdx.x / 32, nt = N / 16;
-  for (int id = warp; id < (M / 16) * nt; id += NWARPS) {
-    const int mi = id / nt, ni = id % nt;
-    float* dst = Cm + mi * 16 * ldc + ni * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (accumulate) {
-      wmma::load_matrix_sync(acc, dst, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(acc, 0.f);
-    }
-    for (int kk = 0; kk < K / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb;
-      wmma::load_matrix_sync(fa, a_row ? A + mi * 16 * lda + kk * 16 : A + kk * 16 * lda + mi * 16, lda);
-      wmma::load_matrix_sync(fb, b_row ? B + kk * 16 * ldb + ni * 16 : B + ni * 16 * ldb + kk * 16, ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(dst, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-// Stage columns [j0, j0 + FC) of a row-major [rows, ld] bf16 matrix into a
-// [rows, FC] shared tile with row stride ldd; columns at or past `ncols`
-// are zero.
-__device__ inline void stage_cols(bf16* dst, int ldd, const bf16* src, int rows, int ld, int j0,
-                                  int FC, int ncols) {
-  const int fc8 = FC / 8;
-  for (int i = threadIdx.x; i < rows * fc8; i += NTHREADS) {
-    const int r = i / fc8, j = (i % fc8) * 8;
-    if (j0 + j < ncols) {
-      cp_async16(dst + r * ldd + j, src + (long long)r * ld + j0 + j);
-    } else {
-      zero16(dst + r * ldd + j);
-    }
-  }
-}
-
-// Stage `rows` full rows of a row-major [*, C] bf16 matrix (zero past `valid`).
-__device__ inline void stage_rows(bf16* dst, int ldd, const bf16* src, int rows, int valid, int C) {
-  const int c8 = C / 8;
-  for (int i = threadIdx.x; i < rows * c8; i += NTHREADS) {
-    const int r = i / c8, c = (i % c8) * 8;
-    if (r < valid) {
-      cp_async16(dst + r * ldd + c, src + (long long)r * C + c);
-    } else {
-      zero16(dst + r * ldd + c);
-    }
-  }
-}
-// Soft routing probabilities of a token tile, as the forward computes them.
-// sP [BT, E] holds zeros on entry and p on exit (rows past `rows` see zero
-// tokens and no text logits). The router logits (x @ fw) @ cw_f go FC hidden
-// columns at a time through sW [C, FC] and sZ [BT, FC] (row strides ldw,
-// ldz). Every thread of the block calls it; it ends in a barrier.
-__device__ void router_tile(const bf16* sX, int ldx, const bf16* __restrict__ fw,
-                            const float* __restrict__ cw, const float* __restrict__ tl,
-                            const float* __restrict__ inv_temp, bf16* sW, int ldw, float* sZ,
-                            int ldz, float* sP, int t0, int rows, int BT, int C, int Hd, int E,
-                            int FC) {
-  const int tid = threadIdx.x;
-  // Router logits (x @ fw) @ cw_f, FC hidden columns at a time, as the forward.
-  for (int j0 = 0; j0 < Hd; j0 += FC) {
-    stage_cols(sW, ldw, fw, C, Hd, j0, FC, Hd);
-    cp_async_wait_all();
-    __syncthreads();
-    mma_tiles<wmma::row_major, wmma::row_major>(sX, ldx, sW, ldw, sZ, ldz, BT, FC, C, false);
-    __syncthreads();
-    for (int i = tid; i < BT * E; i += NTHREADS) {
-      const int r = i / E, e = i % E;
-      float s = 0.f;
-      for (int jj = 0; jj < FC && j0 + jj < Hd; ++jj) s = fmaf(sZ[r * ldz + jj], cw[(j0 + jj) * E + e], s);
-      sP[i] += s;
-    }
-    __syncthreads();
-  }
-
-  // Soft routing probabilities, one thread per token.
-  for (int r = tid; r < BT; r += NTHREADS) {
-    const float it = inv_temp[0];
-    float p[MAX_E];
-    float mx = -INFINITY;
-    for (int e = 0; e < E; ++e) {
-      const float lg = (sP[r * E + e] + (r < rows ? tl[(long long)(t0 + r) * E + e] : 0.f)) * it;
-      p[e] = fminf(fmaxf(lg, -20.f), 20.f);
-      mx = fmaxf(mx, p[e]);
-    }
-    float sum = 0.f;
-    for (int e = 0; e < E; ++e) {
-      p[e] = expf(p[e] - mx);
-      sum += p[e];
-    }
-    float sum2 = 0.f;
-    for (int e = 0; e < E; ++e) {
-      p[e] = fminf(fmaxf(p[e] / sum, 1e-6f), 1.f);
-      sum2 += p[e];
-    }
-    for (int e = 0; e < E; ++e) sP[r * E + e] = p[e] / sum2;
-  }
-  __syncthreads();
-}
-
-// out[s][M, N] = A[t-range s]^T B[t-range s] for bf16 row-major A [T, M] and
-// B [T, N] with row strides lda >= M and ldb >= N (a column slice of a wider
-// matrix): block (n-tile, m-tile, s) owns a 64x64 output tile and the s-th
-// range of `tchunk` tokens. Each of the 8 warps keeps two 16x16 fp32
-// accumulators in registers. M and N must be multiples of 16; tiles
-// overhanging M or N are zero-filled and not stored.
-__global__ void __launch_bounds__(NTHREADS)
-moe_wgrad_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ out,
-                 int T, int M, int N, int lda, int ldb, int tchunk) {
-  constexpr int LDS = WT + 8;
-  __shared__ __align__(128) bf16 sA[WKT * LDS];
-  __shared__ __align__(128) bf16 sB[WKT * LDS];
-  const int n0 = blockIdx.x * WT, m0 = blockIdx.y * WT, s = blockIdx.z;
-  const int tb = s * tchunk, te = min(T, tb + tchunk);
-  const int warp = threadIdx.x / 32;
-  // Warp w owns output tiles (mi, ni) = (w / 2, 2 * (w % 2) + {0, 1}).
-  const int mi = warp / 2, ni0 = 2 * (warp % 2);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  for (int t = tb; t < te; t += WKT) {
-    for (int i = threadIdx.x; i < 2 * WKT * (WT / 8); i += NTHREADS) {
-      const bool is_b = i >= WKT * (WT / 8);
-      const int k = is_b ? i - WKT * (WT / 8) : i;
-      const int r = k / (WT / 8), c = (k % (WT / 8)) * 8;
-      const int lim = is_b ? N : M;
-      const int col = (is_b ? n0 : m0) + c;
-      bf16* dst = (is_b ? sB : sA) + r * LDS + c;
-      if (t + r < te && col < lim) {
-        cp_async16(dst, (is_b ? B : A) + (long long)(t + r) * (is_b ? ldb : lda) + col);
-      } else {
-        zero16(dst);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    for (int kk = 0; kk < WKT / 16; ++kk) {
-      // A^T tile: element (m, t) at sA[t * LDS + m], column-major.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::load_matrix_sync(fa, sA + kk * 16 * LDS + mi * 16, LDS);
-      for (int q = 0; q < 2; ++q) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sB + kk * 16 * LDS + (ni0 + q) * 16, LDS);
-        wmma::mma_sync(acc[q], fa, fb, acc[q]);
-      }
-    }
-    __syncthreads();
-  }
-  const int m = m0 + mi * 16;
-  for (int q = 0; q < 2; ++q) {
-    const int n = n0 + (ni0 + q) * 16;
-    if (m < M && n < N)
-      wmma::store_matrix_sync(out + ((long long)s * M + m) * N + n, acc[q], N,
-                              wmma::mem_row_major);
-  }
-}
+using namespace moe;
 
 // out[i] = sum_k ws[k][i] for k < splits, in order.
 __global__ void moe_sum_kernel(const float* __restrict__ ws, float* __restrict__ out,
@@ -279,159 +85,14 @@ int grid_for(long long n) {
   return static_cast<int>(b < 65535 ? (b > 0 ? b : 1) : 65535);
 }
 
-// Splits of the T reduction for an [M, N] weight gradient: enough blocks for
-// about two per SM, each with at least 512 tokens.
-int wgrad_splits(int T, int M, int N, int sms) {
-  const int tiles = ((M + WT - 1) / WT) * ((N + WT - 1) / WT);
-  int s = (2 * sms + tiles - 1) / tiles;
-  const int most = (T + 511) / 512;
-  if (s > most) s = most;
-  if (s > 65535) s = 65535;
-  return s < 1 ? 1 : s;
-}
-
-int wgrad_chunk(int T, int splits) {
-  const int c = (T + splits - 1) / splits;
-  return (c + WKT - 1) / WKT * WKT;
-}
-
-// Shared-memory tiles of dW2's token kernel, rows padded by 16 bytes against
-// bank conflicts in the WMMA fragment loads: x and dout [BT, C] bf16, the W1
-// [C, FC] slice, z [BT, FC] fp32 and p [BT, E] fp32.
-struct Dw2Layout {
-  int ldx, ldw1, ldz;
-  size_t x, dout, w1, z, p, total;
-  __host__ __device__ Dw2Layout(int BT, int FC, int C, int E) {
-    ldx = C + 8;
-    ldw1 = FC + 8;
-    ldz = FC + 4;
-    size_t off = 0;
-    x = off; off += align128(sizeof(bf16) * BT * ldx);
-    dout = off; off += align128(sizeof(bf16) * BT * ldx);
-    w1 = off; off += align128(sizeof(bf16) * C * ldw1);
-    z = off; off += align128(sizeof(float) * BT * ldz);
-    p = off; off += align128(sizeof(float) * BT * E);
-    total = off;
-  }
-};
-
-// dW2's token kernel: for its tile's share of the (expert, F-chunk) loop it
-// recomputes the soft routing p, z = x W1_e + b1_e and h = bf16(gelu_erf(z)),
-// and writes h [T, E*F] and dy = bf16(p_e dout) [T, E*C] (bf16 scratches)
-// and part_bias = [ntiles, E*C] column sums of p dout; moe_wgrad_kernel then
-// forms h_e^T dy_e once per expert and moe_sum_kernel adds the tile
-// partials in order.
-__global__ void __launch_bounds__(NTHREADS)
-moe_dw2_token_kernel(const bf16* __restrict__ x, const bf16* __restrict__ fw,
-                     const float* __restrict__ cw, const float* __restrict__ tl,
-                     const float* __restrict__ inv_temp, const bf16* __restrict__ w1,
-                     const float* __restrict__ b1, const bf16* __restrict__ dout,
-                     bf16* __restrict__ sc_f, bf16* __restrict__ sc_dy,
-                     float* __restrict__ part_bias, int T, int C, int Hd, int E, int F, int BT,
-                     int FC) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Dw2Layout L(BT, FC, C, E);
-  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L.dout);
-  bf16* sW1 = reinterpret_cast<bf16*>(smem + L.w1);
-  float* sZ = reinterpret_cast<float*>(smem + L.z);
-  float* sP = reinterpret_cast<float*>(smem + L.p);
-
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
-  const int t0 = tile * BT;
-  const int rows = min(BT, T - t0);
-  const int EF = E * F;
-
-  stage_rows(sX, L.ldx, x + (long long)t0 * C, BT, rows, C);
-  stage_rows(sDO, L.ldx, dout + (long long)t0 * C, BT, rows, C);
-  for (int i = tid; i < BT * E; i += NTHREADS) sP[i] = 0.f;
-  cp_async_wait_all();
-  __syncthreads();
-  router_tile(sX, L.ldx, fw, cw, tl, inv_temp, sW1, L.ldw1, sZ, L.ldz, sP, t0, rows, BT, C, Hd,
-              E, FC);
-
-  const int nfc = F / FC, nch = E * nfc;
-  const int ch_end = (int)((long long)(split + 1) * nch / splits);
-  for (int ch = (int)((long long)split * nch / splits); ch < ch_end; ++ch) {
-    const int e = ch / nfc, f0 = (ch % nfc) * FC;
-    // One block per (tile, expert) meets f0 == 0: it writes that expert's
-    // dy rows and the tile's column sums of p_e dout.
-    if (f0 == 0) {
-      for (int i = tid; i < rows * C; i += NTHREADS) {
-        const int r = i / C, c = i % C;
-        sc_dy[(long long)(t0 + r) * E * C + e * C + c] =
-            __float2bfloat16(sP[r * E + e] * __bfloat162float(sDO[r * L.ldx + c]));
-      }
-      for (int c = tid; c < C; c += NTHREADS) {
-        float s = 0.f;
-        for (int r = 0; r < rows; ++r) s = fmaf(sP[r * E + e], __bfloat162float(sDO[r * L.ldx + c]), s);
-        part_bias[(long long)tile * E * C + e * C + c] = s;
-      }
-    }
-    stage_cols(sW1, L.ldw1, w1 + (long long)e * C * F, C, F, f0, FC, F);
-    cp_async_wait_all();
-    __syncthreads();
-
-    // z = x W1 slice.
-    mma_tiles<wmma::row_major, wmma::row_major>(sX, L.ldx, sW1, L.ldw1, sZ, L.ldz, BT, FC, C,
-                                                false);
-    __syncthreads();
-
-    for (int i = tid; i < BT * FC; i += NTHREADS) {
-      const int r = i / FC, j = i % FC;
-      const float z = sZ[r * L.ldz + j] + b1[(long long)e * F + f0 + j];
-      const float cdf = 0.5f * (1.f + erff(z * 0.70710678118654752f));
-      const long long at = (long long)(t0 + r) * EF + e * F + f0 + j;
-      if (r < rows) sc_f[at] = __float2bfloat16(z * cdf);
-    }
-    __syncthreads();
-  }
-}
-
-// Largest token tile, then widest F-chunk, whose shared memory fits.
-bool pick_dw2_tiles(int C, int F, int E, int* bt, int* fc) {
-  const int bts[] = {64, 32, 16};
-  const int fcs[] = {64, 32, 16};
-  for (int b : bts) {
-    for (int f : fcs) {
-      if (F % f != 0) continue;
-      if (Dw2Layout(b, f, C, E).total <= SMEM_LIMIT) {
-        *bt = b;
-        *fc = f;
-        return true;
-      }
-    }
-  }
-  return false;
-}
-
 // out [n] = the sum of ws [k, n] over k < count, in order.
 int sum_into(const void* ws, void* out, long long n, int count, cudaStream_t st) {
   moe_sum_kernel<<<grid_for(n), 256, 0, st>>>(static_cast<const float*>(ws),
-                                                static_cast<float*>(out), n, count);
+                                              static_cast<float*>(out), n, count);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out [M, N] = A^T B over T tokens through `splits` partials in ws (null
-// when splits == 1).
-int wgrad(const void* A, int lda, const void* B, int ldb, void* ws, void* out, int T, int M,
-          int N, int splits, cudaStream_t st) {
-  float* dst = static_cast<float*>(splits > 1 ? ws : out);
-  const dim3 grid((N + WT - 1) / WT, (M + WT - 1) / WT, splits);
-  moe_wgrad_kernel<<<grid, NTHREADS, 0, st>>>(static_cast<const bf16*>(A),
-                                              static_cast<const bf16*>(B), dst, T, M, N, lda,
-                                              ldb, wgrad_chunk(T, splits));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return sum_into(ws, out, (long long)M * N, splits, st);
-}
-
-}  // namespace wm
-
-// --- dx and dW1: register tiles ------------------------------------------------------------
-
-using namespace moe;
+// --- dx and dW1's scratch route: the token kernel ----------------------------------------
 
 // bf16(p dout) for the A fragment `a` of dout (a[0], a[2]: row g; a[1],
 // a[3]: row g + 8) and the rows' p_e: each bf16 pair times its row's p in
@@ -771,21 +432,34 @@ moe_legacy_token_kernel(const bf16* __restrict__ x, const float* __restrict__ pr
   }
 }
 
-// dW1's recompute route: block (expert e, chunk of FW = 64 hidden units, T
-// range s of `tchunk` tokens), 8 warps, tokens in stages of BTK (as
-// fused_moe_bwd.cu's recompute block, whose stages are 32 tokens). Warp (mw,
-// kw) takes the chunk's hidden units mw * 16.. and, in each 32-token group of
-// a stage, the tokens kw * 16..: z^T = W1-slice^T x^T and dh^T = W2-slice
-// dy^T over K = C (dy's B fragments are dout's times each token's p_e,
-// rounded to bf16), dz = dh gelu'(z) packed bf16 as the A fragment of dW1^T
-// += dz^T x, whose [16, CP] fp32 sums stay in registers; the two token warps'
-// sums are added in order at the end. Outputs (partials when gridDim.y > 1,
-// indexed by s): dw1t [E][F][C] (dW1 transposed) and db1 [E][F]. Its shape
-// is moe_tiles.cuh's WTile, with stages of recompute_step<CP>() tokens.
+// --- the weight gradients by recompute: dW1 and dW2 up to C = 256 ------------------------
+//
+// Block (expert e, chunk of FW = 64 hidden units, T range s of `tchunk`
+// tokens), 8 warps, tokens in stages of BTK (as fused_moe_bwd.cu's recompute
+// block, whose stages are 32 tokens); its shape is moe_tiles.cuh's WTile.
+// Warp (mw, kw) takes the chunk's hidden units mw * 16.. and, in each 32-token
+// group of a stage, the tokens kw * 16..: z^T = W1-slice^T x^T over K = C,
+// then by kind (Wg):
+//   dw1: dh^T = W2-slice dy^T (dy's B fragments are dout's times each token's
+//        p_e, rounded to bf16), dz = dh gelu'(z) packed bf16 as the A
+//        fragment of dW1^T += dz^T x;
+//   dw2: h = bf16(gelu(z)) packed as the A fragment of dW2 += h^T dy, dy's
+//        B fragments read from the dout stage, which the block first scales
+//        in place to bf16(p_e dout) (the tokens are the k dimension there,
+//        two to a register, so the fragments cannot take one p each);
+//   h:   dW2's scratch route (C = 512, where a warp's [16, C] fp32 sums do
+//        not fit in registers): h into an [E, T, F] bf16 scratch, and from
+//        the blocks of the first chunk the scaled dout stages into [E, T, C].
+// In dw2 and h the blocks of the first chunk add the fp32 products p_e dout
+// into db2 as they scale. The warp's [16, CP] fp32 sums stay in registers;
+// the two token warps' sums are added in order at the end. Outputs (partials
+// when gridDim.y > 1, indexed by s): wgt [E][F][C] (dW1 transposed, or dW2),
+// bias [E][F] (db1) or [E][C] (db2).
+enum class Wg { dw1, dw2, h };
 
 // Tokens a stage at padded width CP (ops/fused_moe.py::_recompute_step
 // mirrors it). At CP = 32 a 32-token group is a few hundred cycles of work,
-// less than a stage's copy latency, and four groups a stage took the res-64
+// less than a stage's copy latency, and four groups a stage took dW1's res-64
 // block from 0.278 to 0.240 ms; at CP = 64 they changed nothing and at 128
 // two cost 7 % (scripts/torch_moe_bench.py, H100 80GB HBM3, 700 W).
 template <int CP>
@@ -793,35 +467,66 @@ __host__ __device__ constexpr int recompute_step() {
   return CP == 32 ? 128 : 32;
 }
 
-// W1 slice [CP][FW], W2 slice [FW][CP], two stages of x and dout [BTK][CP]
-// (bf16); two stages of p_e [BTK] and the db1 sums [NT] (fp32). The
-// cross-warp sums [FW][CP] fp32 reuse the x and dout stages after the last
-// stage.
-template <int CP>
+// W1 slice [CP][FW], for dW1 the W2 slice [FW][CP], two stages of x and dout
+// [BTK][CP] (bf16); two stages of p_e [BTK] and the db1 sums [NT] (fp32).
+// The cross-warp sums [FW][CP] fp32 and db2's [NT / (CP / 8)][CP] reuse the x
+// and dout stages after the last stage.
+template <int CP, Wg kW>
 constexpr int recompute_smem_bytes() {
   using W = WTile;
   constexpr int BTK = recompute_step<CP>();
-  return 2 * (CP * pitch(W::FW) + W::FW * pitch(CP) + 4 * BTK * pitch(CP)) + 4 * (2 * BTK + W::NT);
+  return 2 * (CP * pitch(W::FW) + (kW == Wg::dw1 ? W::FW * pitch(CP) : 0) +
+              4 * BTK * pitch(CP)) +
+         4 * (2 * BTK + W::NT);
 }
 
-template <int CP>
+// dy = bf16(p_e dout) in place over a staged [BTK][CP] dout tile, p_e [BTK]
+// beside it; with `add`, the fp32 products into each thread's 8 column sums
+// (its columns stay the same: NT is a multiple of a row's 16-byte segments).
+template <int BTK, int CP, int NT>
+__device__ __forceinline__ void scale_stage(bf16* ds, const float* pes, float (&sums)[8],
+                                            bool add) {
+  constexpr int PER = CP / 8;
+  static_assert(NT % PER == 0, "a thread keeps its columns");
+  for (int i = threadIdx.x; i < BTK * PER; i += NT) {
+    const int r = i / PER, c = (i % PER) * 8;
+    uint4* at = reinterpret_cast<uint4*>(ds + r * pitch(CP) + c);
+    uint4 v = *at;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+    const float p = pes[r];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = unpack_bf16(w[k]);
+      const float lo = f.x * p, hi = f.y * p;
+      if (add) {
+        sums[2 * k] += lo;
+        sums[2 * k + 1] += hi;
+      }
+      w[k] = pack_bf16(lo, hi);
+    }
+    *at = v;
+  }
+}
+
+template <int CP, Wg kW>
 __global__ void __launch_bounds__(WTile::NT)
-moe_dw1_recompute_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
-                         const float* __restrict__ probs, const bf16* __restrict__ w1,
-                         const float* __restrict__ b1, const bf16* __restrict__ w2,
-                         float* __restrict__ dw1t, float* __restrict__ db1, int T, int C,
-                         int E, int F, int tchunk) {
+moe_recompute_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
+                     const float* __restrict__ probs, const bf16* __restrict__ w1,
+                     const float* __restrict__ b1, const bf16* __restrict__ w2,
+                     float* __restrict__ wgt, float* __restrict__ bias, bf16* __restrict__ hs,
+                     bf16* __restrict__ dys, int T, int C, int E, int F, int tchunk) {
   using W = WTile;
+  constexpr bool kDw1 = kW == Wg::dw1, kH = kW == Wg::h;
   constexpr int BTK = recompute_step<CP>(), NSUB = BTK / (16 * W::KS), FW = W::FW, NT = W::NT;
-  static_assert(CP <= 256, "the recompute route keeps [16, CP] sums a warp");
+  static_assert(kH || CP <= 256, "the recompute route keeps [16, CP] sums a warp");
   static_assert(BTK % (16 * W::KS) == 0 && BTK <= NT, "a stage is whole 32-token groups");
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sW1t = reinterpret_cast<bf16*>(smem);  // [CP][FW + 8]
-  bf16* sW2 = sW1t + CP * pitch(FW);           // [FW][CP + 8]
-  bf16* sX = sW2 + FW * pitch(CP);             // [2][BTK][CP + 8]
-  bf16* sDO = sX + 2 * BTK * pitch(CP);        // [2][BTK][CP + 8]
+  bf16* sW1t = reinterpret_cast<bf16*>(smem);       // [CP][FW + 8]
+  bf16* sW2 = sW1t + CP * pitch(FW);                // [FW][CP + 8], dW1
+  bf16* sX = sW2 + (kDw1 ? FW * pitch(CP) : 0);     // [2][BTK][CP + 8]
+  bf16* sDO = sX + 2 * BTK * pitch(CP);             // [2][BTK][CP + 8]
   float* sPE = reinterpret_cast<float*>(sDO + 2 * BTK * pitch(CP));  // [2][BTK]
-  float* sRed = sPE + 2 * BTK;                 // [NT], the db1 sums
+  float* sRed = sPE + 2 * BTK;                      // [NT], the db1 sums
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, tq = lane & 3;
   const int mw = warp / W::KS, kw = warp % W::KS;
@@ -829,13 +534,14 @@ moe_dw1_recompute_kernel(const bf16* __restrict__ x, const bf16* __restrict__ do
   const int e = blockIdx.x / nfw, f0 = (blockIdx.x % nfw) * FW, s = blockIdx.y;
   const int tb = s * tchunk, te = min(T, tb + tchunk);
   const int ntile = te > tb ? (te - tb + BTK - 1) / BTK : 0;
+  const bool first = f0 == 0;  // dW2: this block adds db2 for its columns
 
   stage_tile<CP, FW, NT>(sW1t, w1 + (long long)e * C * F, F, 0, C, f0, F);
-  stage_tile<FW, CP, NT>(sW2, w2 + (long long)e * F * C, C, f0, F, 0, C);
+  if constexpr (kDw1) stage_tile<FW, CP, NT>(sW2, w2 + (long long)e * F * C, C, f0, F, 0, C);
   auto issue = [&](int j) {  // stage j into buffer j % 2, one commit group
     const int st = j & 1, t = tb + j * BTK;
     stage_tile<BTK, CP, NT>(sX + st * BTK * pitch(CP), x, C, t, te, 0, C);
-    stage_tile<BTK, CP, NT>(sDO + st * BTK * pitch(CP), dout, C, t, te, 0, C);
+    if (!kH || first) stage_tile<BTK, CP, NT>(sDO + st * BTK * pitch(CP), dout, C, t, te, 0, C);
     if (tid < BTK) {
       const bool ok = t + tid < te;
       cp_async4(sPE + st * BTK + tid, ok ? probs + (long long)(t + tid) * E + e : probs, ok);
@@ -850,25 +556,39 @@ moe_dw1_recompute_kernel(const bf16* __restrict__ x, const bf16* __restrict__ do
   const float b1r[2] = {fr < F ? b1[(long long)e * F + fr] : 0.f,
                         fr + 8 < F ? b1[(long long)e * F + fr + 8] : 0.f};
   float db1r[2] = {0.f, 0.f};
-  float a1[CP / 8][4];  // dW1^T [16, CP] of the warp
+  float db2c[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // this thread's db2 columns
+  float a1[kH ? 1 : CP / 8][4];  // dW1^T or dW2 [16, CP] of the warp
   zero_tiles(a1);
   for (int j = 0; j < ntile; ++j) {
     cp_async_wait_all();
     __syncthreads();  // stage j landed; every warp is done with stage j - 1
     if (j + 1 < ntile) issue(j + 1);
     const bf16* xs = sX + (j & 1) * BTK * pitch(CP);
-    const bf16* ds = sDO + (j & 1) * BTK * pitch(CP);
+    bf16* ds = sDO + (j & 1) * BTK * pitch(CP);
     const float* pes = sPE + (j & 1) * BTK;
+    if constexpr (!kDw1) {
+      if (!kH || first) scale_stage<BTK, CP, NT>(ds, pes, db2c, first);
+      if (kH && first) {
+        // this stage's dy rows into the [E, T, C] scratch, each thread the
+        // segments it scaled
+        for (int i = tid; i < BTK * (CP / 8); i += NT) {
+          const int r = i / (CP / 8), c = (i % (CP / 8)) * 8, t = tb + j * BTK + r;
+          if (t < te && c < C)
+            *reinterpret_cast<uint4*>(dys + ((long long)e * T + t) * C + c) =
+                *reinterpret_cast<const uint4*>(ds + r * pitch(CP) + c);
+        }
+      }
+      __syncthreads();  // dy is whole
+    }
 #pragma unroll
     for (int sub = 0; sub < NSUB; ++sub) {
       const int tw = sub * 16 * W::KS + kw * 16;  // the warp's 16 tokens of this group
-      // B fragments b[0], b[1] hold token tw + g, b[2], b[3] token tw + 8 + g.
-      const float p0 = pes[tw + g], p1 = pes[tw + 8 + g];
-
-      // z^T and dh^T of the warp's 16 hidden units and 16 tokens, K = C.
-      float zq[2][4], dq[2][4];
+      // z^T (and for dW1 dh^T) of the warp's 16 hidden units and 16 tokens, K = C.
+      float zq[2][4], dq[kDw1 ? 2 : 1][4];
       zero_tiles(zq);
       zero_tiles(dq);
+      // dW1: B fragments b[0], b[1] hold token tw + g, b[2], b[3] token tw + 8 + g.
+      const float p0 = kDw1 ? pes[tw + g] : 0.f, p1 = kDw1 ? pes[tw + 8 + g] : 0.f;
 #pragma unroll
       for (int kk = 0; kk < CP / 16; ++kk) {
         uint32_t aw[4], b[4];
@@ -876,13 +596,15 @@ moe_dw1_recompute_kernel(const bf16* __restrict__ x, const bf16* __restrict__ do
         load_bt<CP>(b, xs, tw, kk * 16);
         mma(zq[0], aw, b[0], b[1]);
         mma(zq[1], aw, b[2], b[3]);
-        load_a<CP>(aw, sW2, mw * 16, kk * 16);
-        load_bt<CP>(b, ds, tw, kk * 16);
-        mma(dq[0], aw, scale_bf16x2(b[0], p0), scale_bf16x2(b[1], p0));
-        mma(dq[1], aw, scale_bf16x2(b[2], p1), scale_bf16x2(b[3], p1));
+        if constexpr (kDw1) {
+          load_a<CP>(aw, sW2, mw * 16, kk * 16);
+          load_bt<CP>(b, ds, tw, kk * 16);
+          mma(dq[0], aw, scale_bf16x2(b[0], p0), scale_bf16x2(b[1], p0));
+          mma(dq[1], aw, scale_bf16x2(b[2], p1), scale_bf16x2(b[3], p1));
+        }
       }
-      // dz in registers, packed bf16 as the A fragment of the sums.
-      uint32_t dzq[2][2];
+      // dz (dW1) or h (dW2) in registers, packed bf16 as the A fragment of the sums.
+      uint32_t pq[2][2];
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         float d[4];
@@ -891,81 +613,119 @@ moe_dw1_recompute_kernel(const bf16* __restrict__ x, const bf16* __restrict__ do
           const float zz = zq[n][i] + b1r[i >> 1];
           float ez;
           const float cdf = gelu_cdf(zz, ez);
-          d[i] = dq[n][i] * fmaf(zz * INV_SQRT_2PI, ez, cdf);
-          db1r[i >> 1] += d[i];
+          if constexpr (kDw1) {
+            d[i] = dq[n][i] * fmaf(zz * INV_SQRT_2PI, ez, cdf);
+            db1r[i >> 1] += d[i];
+          } else {
+            d[i] = zz * cdf;
+          }
         }
-        dzq[n][0] = pack_bf16(d[0], d[1]);
-        dzq[n][1] = pack_bf16(d[2], d[3]);
+        pq[n][0] = pack_bf16(d[0], d[1]);
+        pq[n][1] = pack_bf16(d[2], d[3]);
       }
-      uint32_t adz[4];
-      packed_a(adz, dzq, 0);
-      // dW1^T += bf16(dz)^T x over the warp's tokens.
+      if constexpr (kH) {  // h into the [E, T, F] scratch
 #pragma unroll
-      for (int np = 0; np < CP / 16; ++np) {
-        uint32_t b[4];
-        load_b<CP>(b, xs, tw, np * 16);
-        mma(a1[2 * np], adz, b[0], b[1]);
-        mma(a1[2 * np + 1], adz, b[2], b[3]);
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int t = tb + j * BTK + tw + n * 8 + 2 * tq + (i & 1), f = fr + 8 * (i >> 1);
+            const uint32_t v = pq[n][i >> 1] >> (16 * (i & 1));
+            if (t < te && f < F)
+              *reinterpret_cast<uint16_t*>(hs + ((long long)e * T + t) * F + f) =
+                  static_cast<uint16_t>(v);
+          }
+      } else {
+        uint32_t a[4];
+        packed_a(a, pq, 0);
+        // dW1^T += bf16(dz)^T x, or dW2 += h^T bf16(p_e dout), over the warp's tokens.
+        const bf16* bs = kDw1 ? xs : ds;
+#pragma unroll
+        for (int np = 0; np < CP / 16; ++np) {
+          uint32_t b[4];
+          load_b<CP>(b, bs, tw, np * 16);
+          mma(a1[2 * np], a, b[0], b[1]);
+          mma(a1[2 * np + 1], a, b[2], b[3]);
+        }
       }
     }
   }
   cp_async_wait_all();
-  __syncthreads();  // every warp is done with the last tile
+  __syncthreads();  // every warp is done with the last stage
 
-  // The token groups' sums meet in [FW][CP] fp32 over the token stages, added
-  // in warp order; warp kw == 0 of each m-tile writes them.
   float* sAcc = reinterpret_cast<float*>(sX);
-  static_assert(FW * CP * 4 <= 4 * BTK * pitch(CP) * 2, "cross-warp sums exceed the stages");
-  for (int k = 1; k < W::KS; ++k) {
-    if (kw == k) {
+  if constexpr (!kH) {
+    // The token groups' sums meet in [FW][CP] fp32 over the token stages,
+    // added in warp order; warp kw == 0 of each m-tile writes them.
+    static_assert(FW * CP * 4 <= 8 * BTK * pitch(CP), "cross-warp sums exceed the stages");
+    for (int k = 1; k < W::KS; ++k) {
+      if (kw == k) {
 #pragma unroll
-      for (int n = 0; n < CP / 8; ++n)
+        for (int n = 0; n < CP / 8; ++n)
 #pragma unroll
-        for (int half = 0; half < 2; ++half)
-          *reinterpret_cast<float2*>(sAcc + (mw * 16 + g + 8 * half) * CP + n * 8 + 2 * tq) =
-              make_float2(a1[n][2 * half], a1[n][2 * half + 1]);
+          for (int half = 0; half < 2; ++half)
+            *reinterpret_cast<float2*>(sAcc + (mw * 16 + g + 8 * half) * CP + n * 8 + 2 * tq) =
+                make_float2(a1[n][2 * half], a1[n][2 * half + 1]);
+      }
+      __syncthreads();
+      if (kw == 0) {
+#pragma unroll
+        for (int n = 0; n < CP / 8; ++n)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                sAcc + (mw * 16 + g + 8 * half) * CP + n * 8 + 2 * tq);
+            a1[n][2 * half] += v.x;
+            a1[n][2 * half + 1] += v.y;
+          }
+      }
+      __syncthreads();
     }
-    __syncthreads();
     if (kw == 0) {
 #pragma unroll
-      for (int n = 0; n < CP / 8; ++n)
+      for (int half = 0; half < 2; ++half) {
+        const int f = fr + 8 * half;
+        if (f >= F) continue;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              sAcc + (mw * 16 + g + 8 * half) * CP + n * 8 + 2 * tq);
-          a1[n][2 * half] += v.x;
-          a1[n][2 * half + 1] += v.y;
+        for (int n = 0; n < CP / 8; ++n) {
+          const int c = n * 8 + 2 * tq;
+          if (c >= C) continue;
+          const long long at = s * (long long)E * F * C + ((long long)e * F + f) * C + c;
+          *reinterpret_cast<float2*>(wgt + at) = make_float2(a1[n][2 * half], a1[n][2 * half + 1]);
         }
-    }
-    __syncthreads();
-  }
-  if (kw == 0) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int f = fr + 8 * half;
-      if (f >= F) continue;
-#pragma unroll
-      for (int n = 0; n < CP / 8; ++n) {
-        const int c = n * 8 + 2 * tq;
-        if (c >= C) continue;
-        const long long at = s * (long long)E * F * C + ((long long)e * F + f) * C + c;
-        *reinterpret_cast<float2*>(dw1t + at) = make_float2(a1[n][2 * half], a1[n][2 * half + 1]);
       }
     }
   }
 
-  // db1: each warp's quad sums, added over the token groups in order.
-  wtile_unit_sums(db1r, sRed, db1 + (long long)s * E * F + (long long)e * F, f0, F);
+  if constexpr (kDw1) {
+    // db1: each warp's quad sums, added over the token groups in order.
+    wtile_unit_sums(db1r, sRed, bias + (long long)s * E * F + (long long)e * F, f0, F);
+  } else if (first) {
+    // db2: each thread's column sums, added over the threads that share the
+    // columns in order.
+    constexpr int PER = CP / 8, RG = NT / PER;
+    static_assert(RG * CP <= 2 * BTK * pitch(CP), "db2's sums exceed the stages");
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sAcc[(tid / PER) * CP + (tid % PER) * 8 + k] = db2c[k];
+    __syncthreads();
+    for (int c = tid; c < C; c += NT) {
+      float sum = 0.f;
+      for (int r = 0; r < RG; ++r) sum += sAcc[r * CP + c];
+      bias[(long long)s * E * C + (long long)e * C + c] = sum;
+    }
+  }
 }
 
-// dW1's scratch route: out[s] = dz[T range s]^T x[T range s], dz [T, M = E*F]
-// and x [T, N = C] bf16, out [M, N] fp32 (dW1 transposed). Block (m-tile,
-// n-tile; s) forms one [GBM, GBN] tile by moe_tiles.cuh's wgrad_gemm_tile.
+// A scratch route's tiled product: out[s][z] = A_z[T range s]^T B_z[T range s]
+// for the z-th of gridDim.z pairs, A_z = A + z * a_step [T, M] and B_z = B +
+// z * b_step [T, N] bf16, out fp32 [gridDim.y][gridDim.z][M][N]. Block (m-tile,
+// n-tile; s; z) forms one [GBM, GBN] tile by moe_tiles.cuh's wgrad_gemm_tile.
+// dW1 at C = 512: one pair, dz [T, E*F] and x (dW1 transposed).
 __global__ void __launch_bounds__(256)
-moe_dw1_gemm_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ x,
-                    float* __restrict__ out, int T, int M, int N, int tchunk) {
-  const int s = blockIdx.y, tb = s * tchunk;
-  wgrad_gemm_tile(dz, x, out + (long long)s * M * N, M, N, tb, min(T, tb + tchunk));
+moe_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ out,
+                int T, int M, int N, long long a_step, long long b_step, int tchunk) {
+  const int s = blockIdx.y, z = blockIdx.z, tb = s * tchunk;
+  wgrad_gemm_tile(A + z * a_step, B + z * b_step,
+                  out + ((long long)s * gridDim.z + z) * M * N, M, N, tb, min(T, tb + tchunk));
 }
 
 // The splits a token kernel may take: plan[0] its tile, plan[1] its splits.
@@ -973,6 +733,14 @@ template <int CP>
 bool token_plan_ok(const int* plan, int E, int F) {
   const int nch = E * ((F + FC - 1) / FC);
   return plan[0] == Tile<CP>::BT && plan[1] >= 1 && plan[1] <= 65535 && plan[1] <= nch;
+}
+
+// T ranges plan[2] of plan[3] tokens each, whole steps of `step` tokens,
+// covering T exactly once.
+bool ranges_ok(const int* plan, int T, int step) {
+  const int tsplits = plan[2], tchunk = plan[3];
+  return tsplits >= 1 && tsplits <= 65535 && tchunk >= 1 && tchunk % step == 0 &&
+         (long long)tsplits * tchunk >= T && (long long)(tsplits - 1) * tchunk < T;
 }
 
 template <int CP, bool kDx>
@@ -993,6 +761,25 @@ cudaError_t launch_token(const void* x, const void* probs, const void* w1, const
   return cudaGetLastError();
 }
 
+template <int CP, Wg kW>
+cudaError_t launch_recompute(const void* x, const void* dout, const void* probs, const void* w1,
+                             const void* b1, const void* w2, float* wgt, float* bias, void* hs,
+                             void* dys, int T, int C, int E, int F, const int* plan,
+                             cudaStream_t st) {
+  constexpr int smem = recompute_smem_bytes<CP, kW>();
+  static_assert(smem <= MAX_SMEM, "recompute tiles exceed a block's shared memory");
+  static unsigned attr = 0;
+  cudaError_t err = set_smem_once(moe_recompute_kernel<CP, kW>, smem, attr);
+  if (err != cudaSuccess) return err;
+  const int blocks = E * ((F + WTile::FW - 1) / WTile::FW);
+  moe_recompute_kernel<CP, kW><<<dim3(blocks, plan[2]), WTile::NT, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dout),
+      static_cast<const float*>(probs), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2), wgt, bias,
+      static_cast<bf16*>(hs), static_cast<bf16*>(dys), T, C, E, F, plan[3]);
+  return cudaGetLastError();
+}
+
 // dx: plan = (token tile, splits).
 template <int CP>
 int launch_dx(const void* x, const void* probs, const void* w1, const void* b1, const void* w2,
@@ -1005,8 +792,8 @@ int launch_dx(const void* x, const void* probs, const void* w1, const void* b1, 
       x, probs, w1, b1, w2, b2, dout, static_cast<float*>(splits > 1 ? ws_dx : dx),
       static_cast<float*>(splits > 1 ? ws_dp : dp), nullptr, nullptr, T, C, E, F, splits, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  int rc = wm::sum_into(ws_dx, dx, (long long)T * C, splits, st);
-  return rc ? rc : wm::sum_into(ws_dp, dp, (long long)T * E, splits, st);
+  int rc = sum_into(ws_dx, dx, (long long)T * C, splits, st);
+  return rc ? rc : sum_into(ws_dp, dp, (long long)T * E, splits, st);
 }
 
 // dW1: plan = (token tile, splits, T ranges, tokens a range, scratch route),
@@ -1016,15 +803,13 @@ int launch_dw1(const void* x, const void* probs, const void* w1, const void* b1,
                const void* dout, void* dz, void* ws_db1, void* ws_w, void* dw1t, void* db1,
                int T, int C, int E, int F, const int* plan, cudaStream_t st) {
   constexpr bool kScratch = CP > 256;
-  const int tsplits = plan[2], tchunk = plan[3];
+  const int tsplits = plan[2];
   const int ntiles = (T + Tile<CP>::BT - 1) / Tile<CP>::BT;
-  const int step = kScratch ? GBK : recompute_step<CP>();
   const int nbias = kScratch ? ntiles : tsplits;  // the db1 partials: per tile or per T range
   if (!token_plan_ok<CP>(plan, E, F) || plan[4] != int(kScratch) ||
-      (!kScratch && plan[1] != 1) || tsplits < 1 || tsplits > 65535 ||
-      tchunk < 1 || tchunk % step != 0 || (long long)tsplits * tchunk < T ||
-      (long long)(tsplits - 1) * tchunk >= T || (kScratch && dz == nullptr) ||
-      (tsplits > 1 && ws_w == nullptr) || (nbias > 1 && ws_db1 == nullptr))
+      (!kScratch && plan[1] != 1) || !ranges_ok(plan, T, kScratch ? GBK : recompute_step<CP>()) ||
+      (kScratch && dz == nullptr) || (tsplits > 1 && ws_w == nullptr) ||
+      (nbias > 1 && ws_db1 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   float* w_dst = static_cast<float*>(tsplits > 1 ? ws_w : dw1t);
   float* b_dst = static_cast<float*>(nbias > 1 ? ws_db1 : db1);
@@ -1034,26 +819,53 @@ int launch_dw1(const void* x, const void* probs, const void* w1, const void* b1,
                                   b_dst, T, C, E, F, plan[1], st);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int M = E * F, tiles = ((M + GBM - 1) / GBM) * ((C + GBN - 1) / GBN);
-    moe_dw1_gemm_kernel<<<dim3(tiles, tsplits), 256, 0, st>>>(
-        static_cast<const bf16*>(dz), static_cast<const bf16*>(x), w_dst, T, M, C, tchunk);
+    moe_gemm_kernel<<<dim3(tiles, tsplits, 1), 256, 0, st>>>(
+        static_cast<const bf16*>(dz), static_cast<const bf16*>(x), w_dst, T, M, C, 0, 0, plan[3]);
+    err = cudaGetLastError();
   } else {
-    constexpr int smem = recompute_smem_bytes<CP>();
-    static_assert(smem <= MAX_SMEM, "recompute tiles exceed a block's shared memory");
-    static unsigned attr = 0;
-    if ((err = set_smem_once(moe_dw1_recompute_kernel<CP>, smem, attr)) != cudaSuccess)
-      return static_cast<int>(err);
-    const int nfw = (F + WTile::FW - 1) / WTile::FW;
-    moe_dw1_recompute_kernel<CP><<<dim3(E * nfw, tsplits), WTile::NT, smem, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dout),
-        static_cast<const float*>(probs), static_cast<const bf16*>(w1),
-        static_cast<const float*>(b1), static_cast<const bf16*>(w2), w_dst, b_dst, T, C, E, F,
-        tchunk);
+    err = launch_recompute<CP, Wg::dw1>(x, dout, probs, w1, b1, w2, w_dst, b_dst, nullptr,
+                                        nullptr, T, C, E, F, plan, st);
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   int rc = 0;
-  if (tsplits > 1) rc = wm::sum_into(ws_w, dw1t, (long long)E * F * C, tsplits, st);
-  if (!rc && nbias > 1) rc = wm::sum_into(ws_db1, db1, (long long)E * F, nbias, st);
+  if (tsplits > 1) rc = sum_into(ws_w, dw1t, (long long)E * F * C, tsplits, st);
+  if (!rc && nbias > 1) rc = sum_into(ws_db1, db1, (long long)E * F, nbias, st);
   return rc;
+}
+
+// dW2: plan = (token tile, 1, T ranges, tokens a range, scratch route), the
+// route being the scratch one exactly when CP > 256.
+template <int CP>
+int launch_dw2(const void* x, const void* probs, const void* w1, const void* b1, const void* dout,
+               void* h, void* dy, void* ws_db2, void* ws_w, void* dw2, void* db2, int T, int C,
+               int E, int F, const int* plan, cudaStream_t st) {
+  constexpr bool kScratch = CP > 256;
+  const int tsplits = plan[2];
+  if (plan[0] != Tile<CP>::BT || plan[1] != 1 || plan[4] != int(kScratch) ||
+      !ranges_ok(plan, T, kScratch ? GBK : recompute_step<CP>()) ||
+      (kScratch && (h == nullptr || dy == nullptr)) ||
+      (tsplits > 1 && (ws_w == nullptr || ws_db2 == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* w_dst = static_cast<float*>(tsplits > 1 ? ws_w : dw2);
+  float* b_dst = static_cast<float*>(tsplits > 1 ? ws_db2 : db2);
+  cudaError_t err;
+  if constexpr (kScratch) {
+    err = launch_recompute<CP, Wg::h>(x, dout, probs, w1, b1, nullptr, nullptr, b_dst, h, dy, T,
+                                      C, E, F, plan, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // dW2_e = h_e^T dy_e, one expert a grid layer
+    const int tiles = ((F + GBM - 1) / GBM) * ((C + GBN - 1) / GBN);
+    moe_gemm_kernel<<<dim3(tiles, tsplits, E), 256, 0, st>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(dy), w_dst, T, F, C,
+        (long long)T * F, (long long)T * C, plan[3]);
+    err = cudaGetLastError();
+  } else {
+    err = launch_recompute<CP, Wg::dw2>(x, dout, probs, w1, b1, nullptr, w_dst, b_dst, nullptr,
+                                        nullptr, T, C, E, F, plan, st);
+  }
+  if (err != cudaSuccess || tsplits == 1) return static_cast<int>(err);
+  int rc = sum_into(ws_w, dw2, (long long)E * F * C, tsplits, st);
+  return rc ? rc : sum_into(ws_db2, db2, (long long)E * C, tsplits, st);
 }
 
 bool widths_ok(int T, int C, int E, int F) {
@@ -1069,6 +881,15 @@ const char* moegan_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+#define MOE_BY_WIDTH(LAUNCH)              \
+  switch (padded_width(C)) {              \
+    case 32: return LAUNCH(32);           \
+    case 64: return LAUNCH(64);           \
+    case 128: return LAUNCH(128);         \
+    case 256: return LAUNCH(256);         \
+    default: return LAUNCH(512);          \
+  }
+
 // dx_ffn [T, C] and dp [T, E], fp32 (replaces _bwd_dx_kernel), given the
 // soft routing probs [T, E] fp32. plan: (token tile, splits) from
 // ops/fused_moe.py::legacy_plan; ws_dx [splits, T, C] and ws_dp [splits, T,
@@ -1081,67 +902,25 @@ int moegan_moe_bwd_dx(const void* x, const void* probs, const void* w1, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MOE_DX(CP) \
   launch_dx<CP>(x, probs, w1, b1, w2, b2, dout, ws_dx, ws_dp, dx, dp, T, C, E, F, plan, st)
-  switch (padded_width(C)) {
-    case 32: return MOE_DX(32);
-    case 64: return MOE_DX(64);
-    case 128: return MOE_DX(128);
-    case 256: return MOE_DX(256);
-    default: return MOE_DX(512);
-  }
+  MOE_BY_WIDTH(MOE_DX)
 #undef MOE_DX
 }
 
-// The plan of dW2 at (T, C, F, E) on a card with `sms` SMs: plan[0..3] =
-// token tile, F-chunk, splits of the (expert, F-chunk) loop, and the T
-// splits of the weight-gradient product. Returns 0 if no tile fits shared
-// memory.
-int moegan_moe_bwd_dw2_plan(int T, int C, int F, int E, int sms, int* plan) {
-  int bt = 0, fc = 0;
-  if (!wm::pick_dw2_tiles(C, F, E, &bt, &fc)) return 0;
-  const int ntiles = (T + bt - 1) / bt;
-  const int nch = E * (F / fc);
-  const int s = (sms + ntiles - 1) / ntiles;
-  plan[0] = bt;
-  plan[1] = fc;
-  plan[2] = s < 1 ? 1 : (s > nch ? nch : s);
-  plan[3] = wm::wgrad_splits(T, F, C, sms);
-  return 1;
-}
-
-// dW2 [E, F, C] and db2 [E, C], fp32 (replaces _bwd_dw2_kernel). Scratch:
-// h [T, E*F] and dy [T, E*C] bf16, part_db2 [ceil(T / plan[0]), E*C] fp32,
-// ws_w [E, plan[3], F, C] fp32 (null when plan[3] == 1).
-int moegan_moe_bwd_dw2(const void* x, const void* fw, const void* cw, const void* tl,
-                       const void* inv_temp, const void* w1, const void* b1, const void* dout,
-                       void* h, void* dy, void* part_db2, void* ws_w, void* dw2, void* db2, int T,
-                       int C, int Hd, int E, int F, const int* plan, void* stream) {
+// dW2 [E, F, C] and db2 [E, C], fp32 (replaces _bwd_dw2_kernel), given the
+// soft routing probs [T, E] fp32. plan: (token tile, 1, T ranges, tokens a
+// range, scratch route) from ops/fused_moe.py::legacy_plan. Scratch (null
+// where the plan does not use it): on the scratch route h [E, T, F] and dy
+// [E, T, C] bf16; ws_db2 [plan[2], E*C] and ws_w [plan[2], E*F*C] fp32 when
+// plan[2] > 1.
+int moegan_moe_bwd_dw2(const void* x, const void* probs, const void* w1, const void* b1,
+                       const void* dout, void* h, void* dy, void* ws_db2, void* ws_w, void* dw2,
+                       void* db2, int T, int C, int E, int F, const int* plan, void* stream) {
+  if (!widths_ok(T, C, E, F)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int bt = 0, fc = 0;
-  if (!wm::pick_dw2_tiles(C, F, E, &bt, &fc) || bt != plan[0] || fc != plan[1] || plan[2] < 1 ||
-      plan[2] > 65535 || plan[3] < 1 || (plan[3] > 1 && ws_w == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const wm::Dw2Layout L(bt, fc, C, E);
-  cudaError_t err = cudaFuncSetAttribute(wm::moe_dw2_token_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  wm::moe_dw2_token_kernel<<<dim3((T + bt - 1) / bt, plan[2]), wm::NTHREADS, L.total, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(fw), static_cast<const float*>(cw),
-      static_cast<const float*>(tl), static_cast<const float*>(inv_temp),
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(h), static_cast<bf16*>(dy),
-      static_cast<float*>(part_db2), T, C, Hd, E, F, bt, fc);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc) return rc;
-  const long long fcn = (long long)F * C;
-  for (int e = 0; e < E; ++e) {
-    rc = wm::wgrad(static_cast<const bf16*>(h) + (long long)e * F, E * F,
-                   static_cast<const bf16*>(dy) + (long long)e * C, E * C,
-                   plan[3] > 1 ? static_cast<float*>(ws_w) + e * plan[3] * fcn : nullptr,
-                   static_cast<float*>(dw2) + e * fcn, T, F, C, plan[3], st);
-    if (rc) return rc;
-  }
-  return wm::sum_into(part_db2, db2, (long long)E * C, (T + plan[0] - 1) / plan[0], st);
+#define MOE_DW2(CP) \
+  launch_dw2<CP>(x, probs, w1, b1, dout, h, dy, ws_db2, ws_w, dw2, db2, T, C, E, F, plan, st)
+  MOE_BY_WIDTH(MOE_DW2)
+#undef MOE_DW2
 }
 
 // dW1 transposed, dw1t [E, F, C], and db1 [E, F], fp32 (replaces
@@ -1159,14 +938,10 @@ int moegan_moe_bwd_dw1(const void* x, const void* probs, const void* w1, const v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MOE_DW1(CP) \
   launch_dw1<CP>(x, probs, w1, b1, w2, dout, dz, ws_db1, ws_w, dw1t, db1, T, C, E, F, plan, st)
-  switch (padded_width(C)) {
-    case 32: return MOE_DW1(32);
-    case 64: return MOE_DW1(64);
-    case 128: return MOE_DW1(128);
-    case 256: return MOE_DW1(256);
-    default: return MOE_DW1(512);
-  }
+  MOE_BY_WIDTH(MOE_DW1)
 #undef MOE_DW1
 }
+
+#undef MOE_BY_WIDTH
 
 }  // extern "C"

@@ -43,10 +43,9 @@ replaces its TPU kernels `_bwd_dx_kernel`, `_bwd_dw2_kernel` and
 points of `csrc/fused_moe_legacy.cu`: `moe_bwd_dx`, `moe_bwd_dw2` and
 `moe_bwd_dw1`, each recomputing z and h for itself and rounding where its
 TPU kernel rounds (plain twins `moe_bwd_dx_reference`,
-`moe_bwd_dw2_reference`, `moe_bwd_dw1_reference`). dW2 recomputes the
-routing too; dx and dW1 take the forward's (`probs=`, as `FusedMoEFunction`
-passes it) or compute it first. Their plans (`legacy_plan`) are pure Python
-as well; dW2's comes from its C entry point.
+`moe_bwd_dw2_reference`, `moe_bwd_dw1_reference`). Each takes the forward's
+routing (`probs=`, as `FusedMoEFunction` passes it) or computes it first with
+the forward kernel. Their plans (`legacy_plan`) are pure Python as well.
 
 `FusedMoEFunction.backward` and `MoECombineFunction.backward` read
 `MOEGAN_PALLAS_MOE_BWD` at call time, as the JAX package reads it at trace
@@ -437,54 +436,45 @@ def _bwd_outputs(outs):
 
 
 def legacy_plan(which: str, T: int, C: int, F: int, E: int, sms: int) -> MoeBwdPlan:
-    """The launches of the legacy entry point `which` ("dx" or "dw1") at one
-    shape (T >= 1): the token kernel's tile and splits; for dW1 its route and
-    the T ranges of its weight-gradient kernel. The route: dz recomputed per
-    (expert, 64 hidden units) block up to C = 256, or above it bf16 dz
-    through a [T, E*F] scratch and a tiled product."""
+    """The launches of the legacy entry point `which` ("dx", "dw1" or "dw2") at
+    one shape (T >= 1): the token kernel's tile and splits; for dW1 and dW2
+    their route and the T ranges of their weight-gradient kernels. The route:
+    the gradient recomputed per (expert, 64 hidden units) block up to
+    C = 256, or above it bf16 dz (dW1) or h (dW2) through a scratch and a
+    tiled product."""
     bt = _token_tile(C)
     splits = _splits(-(-T // bt), E * -(-F // _FC), sms)
     if which == "dx":
         return MoeBwdPlan(bt, splits, 1, T, False)
     scratch = padded_width(C) > 256
-    # the product's blocks for each T range: 128 x 128 tiles of dW1^T [E*F, C],
-    # or one a (expert, 64 hidden units); a range is whole steps of the kernel
-    grid = -(-E * F // 128) * -(-C // 128) if scratch else E * -(-F // 64)
+    # the product's blocks for each T range: 128 x 128 tiles of dW1^T [E*F, C]
+    # or of each expert's dW2 [F, C], or one a (expert, 64 hidden units); a
+    # range is whole steps of the kernel
+    if not scratch:
+        grid = E * -(-F // 64)
+    elif which == "dw1":
+        grid = -(-E * F // 128) * -(-C // 128)
+    else:
+        grid = E * -(-F // 128) * -(-C // 128)
     step = _WGRAD_TILE if scratch else _recompute_step(C)
     ranges = min(_splits(grid, T, sms), -(-T // step))
     t_range = -(-(-(-T // ranges)) // step) * step
-    return MoeBwdPlan(bt, splits if scratch else 1, -(-T // t_range), t_range, scratch)
+    return MoeBwdPlan(bt, splits if scratch and which == "dw1" else 1, -(-T // t_range), t_range,
+                      scratch)
 
 
 def _recompute_step(C: int) -> int:
-    """Tokens a stage of dW1's recompute kernel (`recompute_step` of
-    csrc/fused_moe_legacy.cu)."""
+    """Tokens a stage of the recompute kernel of dW1 and dW2 (`recompute_step`
+    of csrc/fused_moe_legacy.cu)."""
     return 128 if padded_width(C) == 32 else 32
 
 
-def legacy_kernel_plan(which: str, T: int, C: int, F: int, E: int, device) -> tuple:
-    """The plan of a legacy entry point on `device`: `legacy_plan` for "dx" and
-    "dw1"; for "dw2" (token tile, F-chunk, splits, weight-gradient T-splits)."""
-    sms = _sm_count(torch.device(device))
-    if which == "dw2":
-        return _dw2_plan(T, C, F, E, sms)
-    return tuple(legacy_plan(which, T, C, F, E, sms))
-
-
-@functools.lru_cache(maxsize=None)
-def _dw2_plan(T: int, C: int, F: int, E: int, sms: int) -> tuple[int, ...]:
-    lib = _build.load("fused_moe_legacy")
-    plan = (ctypes.c_int * 4)()
-    fn = lib.moegan_moe_bwd_dw2_plan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-    if not fn(T, C, F, E, sms, plan):
-        raise ValueError(f"no tile fits shared memory at C={C}, F={F}, E={E}")
-    return tuple(plan)
+def legacy_kernel_plan(which: str, T: int, C: int, F: int, E: int, device) -> MoeBwdPlan:
+    """`legacy_plan` on `device`'s SMs."""
+    return legacy_plan(which, T, C, F, E, _sm_count(torch.device(device)))
 
 
 _LEGACY_ARGS = (_P,) * 11 + (_I,) * 4 + (ctypes.POINTER(ctypes.c_int), _P)
-_DW2_ARGS = (_P,) * 14 + (_I,) * 5 + (ctypes.POINTER(ctypes.c_int), _P)
 
 
 def _legacy_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
@@ -499,12 +489,16 @@ def _legacy_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout):
 
 
 def _legacy_probs(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, probs):
-    """The soft routing [T, E] that dx and dW1 read: `probs` (the forward's,
-    checked) or, when None, the forward kernel's, as `fused_moe_bwd` takes it."""
+    """The soft routing [T, E] that the legacy entry points read: `probs` (the
+    forward's, checked) or, when None, the forward kernel's, as `fused_moe_bwd`
+    takes it (w2 None for dW2, which has none)."""
     T, E = text_logits.shape
     if probs is None:
-        # the routing does not read the output bias
-        b2 = torch.zeros((E, x.shape[1]), dtype=torch.float32, device=x.device)
+        # the routing reads neither the output weights nor the output bias
+        C, F = x.shape[1], w1.shape[2]
+        if w2 is None:
+            w2 = torch.zeros((E, F, C), dtype=w1.dtype, device=x.device)
+        b2 = torch.zeros((E, C), dtype=torch.float32, device=x.device)
         probs = fused_moe_ffn(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2)[1]
     _check_tensors(dict(x=(x, x.dtype, x.shape), w1=(w1, w1.dtype, w1.shape),
                         probs=(probs, torch.float32, (T, E))))
@@ -549,9 +543,10 @@ def moe_bwd_dx(x, fw, cw_f, text_logits, inv_temp, w1, b1, w2, b2, dout, probs=N
 moe_bwd_dx.launches = 0
 
 
-def moe_bwd_dw2(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout):
+def moe_bwd_dw2(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout, probs=None):
     """(dW2 [E, F, C], db2 [E, C]) in fp32 through the kernel that replaces
-    `_bwd_dw2_kernel`, as `moe_bwd_dw2_reference`."""
+    `_bwd_dw2_kernel`, as `moe_bwd_dw2_reference`. `probs` as `moe_bwd_dx`;
+    the route by width (`legacy_plan`)."""
     if x.device.type == "cpu":
         return moe_bwd_dw2_reference(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout)
     if x.device.type != "cuda":
@@ -559,18 +554,19 @@ def moe_bwd_dw2(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout):
     inv_temp, dout = _legacy_inputs(x, fw, cw_f, text_logits, inv_temp, w1, b1, None, None, dout)
     T, C = x.shape
     E, _, F = w1.shape
-    plan = legacy_kernel_plan("dw2", T, C, F, E, x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
-    bf = dict(dtype=x.dtype, device=x.device)
-    h, dy = torch.empty((T, E * F), **bf), torch.empty((T, E * C), **bf)
-    part = torch.empty((-(-T // plan[0]), E * C), **f32)
-    ws_w = _maybe(plan[3] > 1, (E, plan[3], F, C), x)
+    if T == 0:
+        return torch.zeros((E, F, C), **f32), torch.zeros((E, C), **f32)
     dw2, db2 = torch.empty((E, F, C), **f32), torch.empty((E, C), **f32)
-    lib, fn = _build.entry("fused_moe_legacy", "moegan_moe_bwd_dw2", _DW2_ARGS)
-    rc = fn(*_ptrs(x, fw, cw_f, text_logits, inv_temp, w1, b1, dout, h, dy, part, ws_w, dw2, db2),
-            T, C, fw.shape[-1], E, F, (ctypes.c_int * 4)(*plan),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "moe_bwd_dw2")
+    probs = _legacy_probs(x, fw, cw_f, text_logits, inv_temp, w1, b1, None, probs)
+    plan = legacy_plan("dw2", T, C, F, E, _sm_count(x.device))
+    ranges = plan.t_ranges > 1
+    h = _maybe(plan.scratch, (E, T, F), x, x.dtype)
+    dy = _maybe(plan.scratch, (E, T, C), x, x.dtype)
+    ws_db2 = _maybe(ranges, (plan.t_ranges, E * C), x)
+    ws_w = _maybe(ranges, (plan.t_ranges, E * F * C), x)
+    _legacy_launch("dw2", plan, (x, probs, w1, b1, dout, h, dy, ws_db2, ws_w, dw2, db2),
+                   T, C, E, F, x.device)
     moe_bwd_dw2.launches += 1
     return dw2, db2
 
@@ -649,7 +645,7 @@ class FusedMoEFunction(torch.autograd.Function):
                                     (dout, dprobs))
         if mode == "3":
             dx_ffn, dp = moe_bwd_dx(x, fw, cw_f, tl, it, w1, b1, w2, b2, dout, probs=probs)
-            dw2, db2 = moe_bwd_dw2(x, fw, cw_f, tl, it, w1, b1, dout)
+            dw2, db2 = moe_bwd_dw2(x, fw, cw_f, tl, it, w1, b1, dout, probs=probs)
             dw1, db1 = moe_bwd_dw1(x, fw, cw_f, tl, it, w1, b1, w2, dout, probs=probs)
         else:
             dx_ffn, dp, dw1, db1, dw2, db2 = fused_moe_bwd(x, fw, cw_f, tl, it, w1, b1, w2, b2,

@@ -11,12 +11,12 @@ local experts. Where the tree's `fused_moe_bwd` takes the forward's routing
 in this tree the call without `probs` first runs the forward kernel for the
 routing.
 The legacy backward's three entry points (`MOEGAN_PALLAS_MOE_BWD=3`) at
-batch 64: `moe_bwd_dx`, `moe_bwd_dw1` and, as the control whose code no
-redesign touched, `moe_bwd_dw2`, each called without the routing (the only
-call every tree takes: the first port's kernels compute it themselves, this
-tree's dx and dW1 run the forward kernel for it); where the tree's dx and
-dW1 take the forward's routing (`probs=`, as `FusedMoEFunction` calls them
-under =3), also so. `--what legacy` times these alone.
+batch 64: `moe_bwd_dx`, `moe_bwd_dw2` and `moe_bwd_dw1`, each called without
+the routing (the only call every tree takes: the first port's kernels compute
+it themselves, this tree's entry points run the forward kernel for it); where
+the tree's entry point takes the forward's routing (`probs=`, as
+`FusedMoEFunction` calls them under =3), also so, with its plan.
+`--what legacy` times these alone.
 Each is timed with CUDA events over a run of calls (`ms`, the host's cost
 per call included) and as the same calls replayed from one CUDA graph
 (`device_ms`). Inputs are made on the card from a seed.
@@ -116,13 +116,15 @@ def legacy_rows(tfm, row, a, dout, C, reps) -> None:
     row["legacy_dx"] = both(lambda: tfm.moe_bwd_dx(*dx_args, dout), reps)
     row["legacy_dw2"] = both(lambda: tfm.moe_bwd_dw2(*dw2_args, dout), reps)
     row["legacy_dw1"] = both(lambda: tfm.moe_bwd_dw1(*dw1_args, dout), reps)
-    if "probs" in inspect.signature(tfm.moe_bwd_dw1).parameters:
-        p = tfm.fused_moe_ffn(*a, hard=False)[1]
-        row["legacy_dx_given_probs"] = both(lambda: tfm.moe_bwd_dx(*dx_args, dout, probs=p), reps)
-        row["legacy_dw1_given_probs"] = both(
-            lambda: tfm.moe_bwd_dw1(*dw1_args, dout, probs=p), reps)
-        row["legacy_dw1_plan"] = list(tfm.legacy_kernel_plan("dw1", x.shape[0], C, 4 * C, 4,
-                                                             x.device))
+    p = tfm.fused_moe_ffn(*a, hard=False)[1]
+    for name, fn, args in (("dx", tfm.moe_bwd_dx, dx_args), ("dw2", tfm.moe_bwd_dw2, dw2_args),
+                           ("dw1", tfm.moe_bwd_dw1, dw1_args)):
+        if "probs" not in inspect.signature(fn).parameters:
+            continue
+        row[f"legacy_{name}_given_probs"] = both(lambda: fn(*args, dout, probs=p), reps)
+        if name != "dx":
+            row[f"legacy_{name}_plan"] = list(tfm.legacy_kernel_plan(name, x.shape[0], C, 4 * C,
+                                                                     4, x.device))
 
 
 def main() -> None:

@@ -251,17 +251,19 @@ def test_legacy_moe_bwd_kernels_match_plain_on_card(cuda_device, C, T, F):
     x, fw, cw, tl, it, w1, b1, w2, b2 = args
     g = torch.Generator(device=cuda_device).manual_seed(C + 1)
     dout = torch.randn((T, C), generator=g, device=cuda_device).to(torch.bfloat16)
-    # the forward's routing, as FusedMoEFunction hands it to dx and dW1
+    # the forward's routing, as FusedMoEFunction hands it to the three
     probs = tfm.fused_moe_ffn(*args, hard=False)[1]
-    assert tfm.legacy_kernel_plan("dw1", T, C, F, 4, cuda_device)[4] == (C > 256)
-    for name, fn, ref, inputs, kw in (
-            ("dx", tfm.moe_bwd_dx, tfm.moe_bwd_dx_reference, args, dict(probs=probs)),
-            ("dw2", tfm.moe_bwd_dw2, tfm.moe_bwd_dw2_reference, args[:7], {}),
-            ("dw1", tfm.moe_bwd_dw1, tfm.moe_bwd_dw1_reference, args[:8], dict(probs=probs))):
-        if kw:  # without probs, the entry point takes the same routing from the forward kernel
-            for u, v in zip(fn(*inputs, dout), fn(*inputs, dout, **kw)):
-                assert torch.equal(u, v), f"{name}: the call without probs differs"
-        got, again, want = fn(*inputs, dout, **kw), fn(*inputs, dout, **kw), ref(*inputs, dout)
+    for which in ("dw1", "dw2"):
+        assert tfm.legacy_kernel_plan(which, T, C, F, 4, cuda_device).scratch == (C > 256)
+    for name, fn, ref, inputs in (
+            ("dx", tfm.moe_bwd_dx, tfm.moe_bwd_dx_reference, args),
+            ("dw2", tfm.moe_bwd_dw2, tfm.moe_bwd_dw2_reference, args[:7]),
+            ("dw1", tfm.moe_bwd_dw1, tfm.moe_bwd_dw1_reference, args[:8])):
+        # without probs, the entry point takes the same routing from the forward kernel
+        for u, v in zip(fn(*inputs, dout), fn(*inputs, dout, probs=probs)):
+            assert torch.equal(u, v), f"{name}: the call without probs differs"
+        got, again = fn(*inputs, dout, probs=probs), fn(*inputs, dout, probs=probs)
+        want = ref(*inputs, dout)
         torch.cuda.synchronize()
         for i, (u, v, w) in enumerate(zip(got, again, want)):
             assert torch.equal(u, v), f"{name}[{i}]: two calls differ"
@@ -269,3 +271,66 @@ def test_legacy_moe_bwd_kernels_match_plain_on_card(cuda_device, C, T, F):
             # units, summed in other orders: within 2e-2 of the largest |grad|
             torch.testing.assert_close(u, w, rtol=0, atol=2e-2 * w.abs().max().item(),
                                        msg=f"{name}[{i}]")
+
+
+# Fault 3.1, closed: dW2's h is the TPU kernels' erf polynomial (moe_tiles.cuh's
+# gelu_cdf), as the forward kernel's, bit for bit. W1 = 0, so z = b1, a grid of
+# 4096 values in [-6, 6] over the hidden units; the text logits saturate the
+# routing on expert 0, so bf16(p_0 * 1) = 1, and dout is one-hot at one token
+# and channel, so dW2[0, :, channel] is h itself. The hard forward kernel gives
+# the same h through W2 selecting one hidden unit per output channel, C units a
+# call. (Kernel against kernel: in fp32, 1 - poly * exp(-x^2) cancels at
+# z = -3..-6 by as much as the polynomial differs from erf, so no float64 or
+# CPU polynomial decides these bits.) The call takes no `probs`: dW2 routes as
+# the forward kernel does. C = 64 takes dW2's recompute route, C = 512 its scratch.
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 512])
+def test_legacy_dw2_gelu_matches_forward_kernel_bits(cuda_device, C):
+    dev, bf = cuda_device, torch.bfloat16
+    E, F, T, hid, tok, chan = 4, 4096, 16, 128, 3, 5
+    g = torch.Generator(device=dev).manual_seed(C)
+    x = torch.randn((T, C), generator=g, device=dev).to(bf)
+    fw, cw = torch.zeros((C, hid), dtype=bf, device=dev), torch.zeros((hid, E), device=dev)
+    tl = torch.zeros((T, E), device=dev)
+    tl[:, 0] = 100.0  # clipped to 20: p_0 = 1 - 3e-6 after the 1e-6 floors
+    it = torch.ones(1, device=dev)
+    w1 = torch.zeros((E, C, F), dtype=bf, device=dev)
+    b1 = torch.linspace(-6.0, 6.0, F, device=dev).expand(E, F).contiguous()
+    dout = torch.zeros((T, C), dtype=bf, device=dev)
+    dout[tok, chan] = 1.0
+    h_dw2 = tfm.moe_bwd_dw2(x, fw, cw, tl, it, w1, b1, dout)[0][0, :, chan]
+    h_fwd = torch.empty(F, device=dev)
+    cols = torch.arange(C, device=dev)
+    for k in range(F // C):
+        w2 = torch.zeros((E, F, C), dtype=bf, device=dev)
+        w2[:, k * C + cols, cols] = 1.0
+        out, p = tfm.fused_moe_ffn(x, fw, cw, tl, it, w1, b1, w2,
+                                   torch.zeros((E, C), device=dev), hard=True)
+        assert (p[:, 0] == 1).all()
+        h_fwd[k * C:(k + 1) * C] = out[tok].float()
+    torch.cuda.synchronize()
+    differ = h_dw2 != h_fwd
+    assert not differ.any(), (
+        f"{int(differ.sum())} of {F} z in [-6, 6] give dW2 another h than the forward kernel, "
+        f"first at z = {b1[0][differ][:4].tolist()}")
+
+
+@pytest.mark.cuda
+def test_legacy_entry_points_take_no_tokens(cuda_device):
+    """T = 0: zero gradients from all three legacy entry points, no launch."""
+    a = moe_inputs(seed=3, T=8, C=32, F=128, h=128)
+    bf = {"x", "fw", "w1", "w2"}
+    args = [t(a[k]).to(cuda_device, torch.bfloat16 if k in bf else torch.float32)
+            if k != "inv_temp" else torch.full((1,), a[k], device=cuda_device) for k in MOE_ORDER]
+    args[0], args[3] = args[0][:0], args[3][:0]  # x [0, C], text_logits [0, E]
+    dout = torch.zeros((0, 32), dtype=torch.bfloat16, device=cuda_device)
+    before = [f.launches for f in (tfm.moe_bwd_dx, tfm.moe_bwd_dw2, tfm.moe_bwd_dw1)]
+    dx, dp = tfm.moe_bwd_dx(*args, dout)
+    dw2, db2 = tfm.moe_bwd_dw2(*args[:7], dout)
+    dw1, db1 = tfm.moe_bwd_dw1(*args[:8], dout)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (tfm.moe_bwd_dx, tfm.moe_bwd_dw2, tfm.moe_bwd_dw1)] == before
+    for got, shape in ((dx, (0, 32)), (dp, (0, 4)), (dw2, (4, 128, 32)), (db2, (4, 32)),
+                       (dw1, (4, 32, 128)), (db1, (4, 128))):
+        assert got.shape == shape and got.dtype == torch.float32
+        assert not got.any()
