@@ -59,12 +59,13 @@ failure (non-zero exit, no result line):
 10. the JAX package's opt-in kernel configuration, MOEGAN_FUSED_LN=1 and
    MOEGAN_PALLAS_MOE_BWD=3, set in this phase alone and restored after it:
    (a) both LayerNorm kernels against their plain twins at the five norm
-   shapes of the step at batch 64, two calls bit-identical, times beside
-   `F.layer_norm`'s; (b) the three legacy MoE backward entry points, each
-   against its own plain twin at the five MoE blocks (each with the
-   forward's routing, as the step launches them), two calls bit-identical,
-   with times, device times, bounds, GELU floors and each block's plan
-   (dW1's and dW2's routes), and `FusedMoEFunction`'s gradients under =3
+   shapes of the step at batch 64, two calls bit-identical, times (with the
+   host, device times hot in L2, and cold: over input copies that move at
+   least 100 MB a pass) beside `F.layer_norm`'s; (b) the three legacy MoE
+   backward entry points, each against its own plain twin at the five MoE
+   blocks (each with the forward's routing, as the step launches them), two
+   calls bit-identical, with times, device times, bounds, GELU floors and
+   each block's plan (dW1's and dW2's routes), and `FusedMoEFunction`'s gradients under =3
    against =1;
    (c) 5 training steps at batch 64 (launches 6 / 3 flash, 10 fused MoE forwards, 0 fused MoE
    backwards, 5 of each legacy entry point, 20 / 10 LayerNorm) and the
@@ -98,7 +99,9 @@ from __future__ import annotations
 import base64
 import contextlib
 import functools
+import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -174,6 +177,38 @@ def graph_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / reps
+
+
+# Bytes one pass over `cold_graph_ms`'s input copies moves: twice the H100's
+# 50 MB L2, so every copy's reads come from device memory.
+COLD_BYTES = 100e6
+
+
+def cold_graph_ms(fn, inputs) -> float:
+    """Device ms per call of fn(*a), a cycling over the input copies `inputs`,
+    two passes captured in one CUDA graph (as `graph_ms`). Give one more copy
+    than a pass of COLD_BYTES needs, so at least COLD_BYTES of other traffic
+    passes between two calls on one copy."""
+    turn = itertools.cycle(inputs)
+    return graph_ms(lambda: fn(*next(turn)), 2 * len(inputs))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host µs per call: `calls` calls enqueued without a synchronize (the
+    wrapper's Python and launch cost, while the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def cold_copies(nbytes: float) -> int:
+    """Input copies for `cold_graph_ms` of a call that moves `nbytes`."""
+    return math.ceil(COLD_BYTES / nbytes) + 1
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
@@ -1312,7 +1347,11 @@ def env_flags(flags):
 def layer_norm_phase(dev, tln):
     """(a) Both LayerNorm kernels against their plain twins at the five norm
     shapes of the 64x64 step at batch 64 (x [B*T, C] bf16), two calls
-    bit-identical, with times for the kernel, the twin and F.layer_norm."""
+    bit-identical, with times for the kernel, the twin and F.layer_norm:
+    `ms` (CUDA events, the host's cost per call included), `device_ms` (a
+    CUDA graph's replay, inputs hot in L2), `cold_device_ms` (the same over
+    rotating input copies, reads from device memory) and `host_us` (host
+    time a call, enqueued without a synchronize)."""
     import torch.nn.functional as F
 
     fwd_rows, bwd_rows = [], []
@@ -1344,32 +1383,53 @@ def layer_norm_phase(dev, tln):
             # dbias: fp32 sums over N rows in other orders.
             check(e <= lim * r, f"{label}: max |{name} - plain| {e} > {lim} * {r}")
             errs[name] = [e, r]
+        del y, y2, want, got, again, want_b
         sb, bb = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
-        xr = x.detach().requires_grad_(True)
-        sr, br = sb.detach().requires_grad_(True), bb.detach().requires_grad_(True)
-        ms = time_ms(lambda: tln.layer_norm_fwd(x, scale, bias), 20)
-        plain_ms = time_ms(lambda: tln.layer_norm(x, scale, bias), 10)
-        lib_ms = time_ms(lambda: F.layer_norm(x, (C,), sb, bb, 1e-5), 20)
+
+        def lib_fwd(x):
+            return F.layer_norm(x, (C,), sb, bb, 1e-5)
+
+        def lib_bwd(x, dy):
+            xr = x.detach().requires_grad_(True)
+            sr, br = sb.detach().requires_grad_(True), bb.detach().requires_grad_(True)
+            return torch.autograd.grad(F.layer_norm(xr, (C,), sr, br, 1e-5), (xr, sr, br), dy)
+
         # x read and y written (bf16), scale and bias read; ~8 fp32 operations
         # per element (two sums, the centring, the square, the scale, the shift)
-        b_ms, b_by = bound_ms(8.0 * N * C, 4.0 * N * C + 8.0 * C, PEAK_FP32_FLOPS)
-        fwd_rows.append(dict(res=res, N=N, C=C, max_abs_err=err, max_abs_ref=top, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms, flops=8.0 * N * C,
-                             bytes=4.0 * N * C + 8.0 * C, bound_ms=b_ms, bound_by=b_by))
+        nbytes = 4.0 * N * C + 8.0 * C
+        b_ms, b_by = bound_ms(8.0 * N * C, nbytes, PEAK_FP32_FLOPS)
+        xs = [(x,)] + [(x.clone(),) for _ in range(cold_copies(nbytes) - 1)]
+        fwd_rows.append(dict(
+            res=res, N=N, C=C, max_abs_err=err, max_abs_ref=top,
+            ms=time_ms(lambda: tln.layer_norm_fwd(x, scale, bias), 20),
+            device_ms=graph_ms(lambda: tln.layer_norm_fwd(x, scale, bias), 20),
+            cold_device_ms=cold_graph_ms(lambda a: tln.layer_norm_fwd(a, scale, bias), xs),
+            cold_copies=len(xs), host_us=host_us(lambda: tln.layer_norm_fwd(x, scale, bias)),
+            plain_ms=time_ms(lambda: tln.layer_norm(x, scale, bias), 10),
+            library_ms=time_ms(lambda: lib_fwd(x), 20), library_device_ms=graph_ms(
+                lambda: lib_fwd(x), 20), library_cold_device_ms=cold_graph_ms(lib_fwd, xs),
+            flops=8.0 * N * C, bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
         print("layer_norm_fwd " + json.dumps(fwd_rows[-1]), flush=True)
-        ms = time_ms(lambda: tln.layer_norm_bwd(x, scale, dy), 20)
-        plain_ms = time_ms(lambda: tln.layer_norm_bwd_reference(x, scale, dy), 10)
-        lib_ms = time_ms(lambda: torch.autograd.grad(F.layer_norm(xr, (C,), sr, br, 1e-5),
-                                                     (xr, sr, br), dy), 20)
+        del xs
         # x and dy read, dx written (bf16), scale read, dscale and dbias
         # written; ~16 fp32 operations per element
         nbytes = 6.0 * N * C + 12.0 * C
         b_ms, b_by = bound_ms(16.0 * N * C, nbytes, PEAK_FP32_FLOPS)
-        bwd_rows.append(dict(res=res, N=N, C=C, max_abs_err=max(e for e, _ in errs.values()),
-                             errs=errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             flops=16.0 * N * C, bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
+        xs = [(x, dy)] + [(x.clone(), dy.clone()) for _ in range(cold_copies(nbytes) - 1)]
+        bwd_rows.append(dict(
+            res=res, N=N, C=C, max_abs_err=max(e for e, _ in errs.values()), errs=errs,
+            ms=time_ms(lambda: tln.layer_norm_bwd(x, scale, dy), 20),
+            device_ms=graph_ms(lambda: tln.layer_norm_bwd(x, scale, dy), 20),
+            cold_device_ms=cold_graph_ms(lambda a, b: tln.layer_norm_bwd(a, scale, b), xs),
+            cold_copies=len(xs), host_us=host_us(lambda: tln.layer_norm_bwd(x, scale, dy)),
+            plain_ms=time_ms(lambda: tln.layer_norm_bwd_reference(x, scale, dy), 10),
+            # F.layer_norm's forward and backward
+            library_ms=time_ms(lambda: lib_bwd(x, dy), 20),
+            library_device_ms=graph_ms(lambda: lib_bwd(x, dy), 20),
+            library_cold_device_ms=cold_graph_ms(lib_bwd, xs),
+            flops=16.0 * N * C, bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
         print("layer_norm_bwd " + json.dumps(bwd_rows[-1]), flush=True)
-        del x, dy, y, y2, want, got, again, want_b, xr
+        del x, dy, xs
     torch.cuda.empty_cache()
     return fwd_rows, bwd_rows
 
@@ -1878,6 +1938,11 @@ def main() -> None:
         # the legacy entry points with the forward's routing, as FusedMoEFunction
         # launches them under =3
         **{name: {"device_ms": total(rows, "device_ms")} for name, rows in legacy_rows.items()},
+        # cold_device_ms: over rotating input copies (reads from device memory)
+        **{name: {key: total(rows, key) for key in ("device_ms", "cold_device_ms",
+                                                     "library_device_ms",
+                                                     "library_cold_device_ms")}
+           for name, rows in (("layer_norm_fwd", ln_fwd_rows), ("layer_norm_bwd", ln_bwd_rows))},
     }
     for name, rows, src, replaces, lib, shapes in (
         ("flash_attention_fwd", flash_rows, "moegan_tpu_torch/ops/csrc/flash_attention.cu",

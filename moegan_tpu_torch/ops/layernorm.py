@@ -16,13 +16,20 @@ multiple of 8, C <= 512, N a multiple of the row block) has no meaning on
 Hopper: the kernel takes every N and every C up to 512 and raises above.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. There is no fallback between the two.
+kernel or raises. There is no fallback between the two. Both launches follow
+`layer_norm_plan` (pure Python, cached per shape): the vector width, the
+lanes a row, the grid; the C entry points check the plan they are given.
+The backward's blocks meet in one launch through a device counter
+(`_ticket`, one per device, 0 between calls): the last 8 to arrive add the
+partial sums.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -79,6 +86,69 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias=None, dy=None) -> tuple[in
     return x.numel() // C, C
 
 
+class LayerNormPlan(NamedTuple):
+    """The launches of both kernels at one shape (`layer_norm_plan`)."""
+
+    vec: int  # elements a vector: 8 (bf16) or 4 (fp32) in 16 bytes, or 1
+    group: int  # lanes a row (G, a power of two <= 32)
+    vectors: int  # vectors a lane (group * vectors * vec >= C)
+    rows: int  # rows a block takes at once
+    fwd_blocks: int
+    bwd_blocks: int  # also the rows of the backward's partial sums
+
+
+_WARPS = 8  # a block of either kernel, as csrc/layer_norm.cu's kWarps
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def layer_norm_plan(N: int, C: int, dtype: torch.dtype, aligned: bool,
+                    sms: int) -> LayerNormPlan:
+    """The kernels' launch plan for x [N, C] (N >= 1) of `dtype` on `sms` SMs.
+    `aligned`: x, the other row tensors (y; dy and dx) and the weights (scale
+    and bias; scale) lie on 16-byte boundaries. 16-byte vectors where C is a
+    multiple of them and all are aligned, else single elements; a row over G
+    lanes, G = the vectors a row rounded up to a power of two, at most 32.
+    The forward's grid: two rows a warp where N allows, at most the blocks
+    the SMs hold at once (4 an SM at <= 8 columns a thread, else 2), at
+    least a block on every SM that N fills. The backward's depends on N and
+    `sms` alone: 2 blocks an SM, at most one a 8 rows (a row a warp), each
+    writing one partial row."""
+    full = 8 if dtype == torch.bfloat16 else 4
+    vec = full if aligned and C % full == 0 else 1
+    nvec = -(-C // vec)
+    group = min(32, _pow2_at_least(nvec))
+    vectors = _pow2_at_least(-(-nvec // group))
+    rows = _WARPS * (32 // group)
+    fwd_per_sm = 4 if vec * vectors <= 8 else 2
+    fwd_blocks = max(min(-(-N // (2 * rows)), fwd_per_sm * sms), min(-(-N // rows), sms))
+    return LayerNormPlan(vec, group, vectors, rows, fwd_blocks, min(-(-N // _WARPS), 2 * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The backward's ticket counter on `device`: 0 between calls (the
+    kernel's last reducing block sets it back), so one allocation serves
+    every call and every captured CUDA graph."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("layer_norm_bwd: run it once on this device before capturing a graph")
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# pointers, N, C, is_bf16, eps, the plan's five ints, the stream
+_FWD_ARGS = (_P,) * 4 + (_I,) * 3 + (ctypes.c_float,) + (_I,) * 5 + (_P,)
+_BWD_ARGS = (_P,) * 8 + (_I,) * 3 + (ctypes.c_float,) + (_I,) * 5 + (_P,)
+
+
 def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm of x [..., C] (bf16 or float32) with float32 weight and bias [C]."""
@@ -91,12 +161,11 @@ def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x)
     if N == 0:
         return y
-    lib = _build.load("layer_norm")
-    fn = lib.moegan_layer_norm_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    rc = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), N, C,
-            int(x.dtype == torch.bfloat16), eps, torch.cuda.current_stream(x.device).cuda_stream)
+    xp, sp, bp, yp = x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr()
+    plan = layer_norm_plan(N, C, x.dtype, (xp | sp | bp | yp) % 16 == 0, _sm_count(x.device))
+    lib, fn = _build.entry("layer_norm", "moegan_layer_norm_fwd", _FWD_ARGS)
+    rc = fn(xp, sp, bp, yp, N, C, int(x.dtype == torch.bfloat16),
+            eps, *plan[:4], plan.fwd_blocks, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "layer_norm_fwd")
     layer_norm_fwd.launches += 1
     return y
@@ -117,23 +186,20 @@ def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, eps:
     N, C = _check(x, weight, dy=dy)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    dscale, dbias = torch.empty(C, **f32), torch.empty(C, **f32)
     if N == 0:
-        return dx, dscale.zero_(), dbias.zero_()
-    lib = _build.load("layer_norm")
-    blocks = lib.moegan_layer_norm_bwd_blocks
-    blocks.restype = ctypes.c_int
-    blocks.argtypes = [ctypes.c_int]
-    part = torch.empty((blocks(N), 2, C), **f32)
-    fn = lib.moegan_layer_norm_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    rc = fn(x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), N, C, int(x.dtype == torch.bfloat16), eps,
+        return dx, torch.zeros(C, **f32), torch.zeros(C, **f32)
+    grads = torch.empty((2, C), **f32)  # dscale, dbias
+    xp, sp, dyp, dxp = x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr()
+    plan = layer_norm_plan(N, C, x.dtype, (xp | sp | dyp | dxp) % 16 == 0, _sm_count(x.device))
+    part = torch.empty((plan.bwd_blocks, 2, C), **f32)
+    lib, fn = _build.entry("layer_norm", "moegan_layer_norm_bwd", _BWD_ARGS)
+    rc = fn(xp, sp, dyp, dxp, part.data_ptr(), grads[0].data_ptr(),
+            grads[1].data_ptr(), _ticket(x.device).data_ptr(), N, C,
+            int(x.dtype == torch.bfloat16), eps, *plan[:4], plan.bwd_blocks,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
-    return dx, dscale, dbias
+    return dx, grads[0], grads[1]
 
 
 layer_norm_bwd.launches = 0

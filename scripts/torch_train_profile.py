@@ -12,7 +12,9 @@ Run from the repository root on a machine with a CUDA device:
 It prints the card's name and power limit, then one JSON line. The opt-in
 kernel configuration (the LayerNorm kernels and the legacy three-kernel MoE
 backward) is profiled with `MOEGAN_FUSED_LN=1 MOEGAN_PALLAS_MOE_BWD=3` in the
-environment; the JSON line names the two flags as it found them.
+environment; the JSON line names the two flags as it found them, and gives the
+MoE kernels' device time (`moe_device_ms`, `moe_bwd_device_ms`) and the
+LayerNorm kernels' (`ln_device_ms`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -87,6 +90,9 @@ def main() -> None:
         "moe_bwd_device_ms": sum(e.self_device_time_total for e in events
                                  if "moe" in e.key and "moe_fwd_kernel" not in e.key
                                  and "moe_split_sum_kernel" not in e.key) / 1e3,
+        # the LayerNorm kernels under MOEGAN_FUSED_LN=1 (csrc/layer_norm.cu names them ln_*)
+        "ln_device_ms": sum(e.self_device_time_total for e in events
+                            if re.search(r"(^|::|\s)ln_\w*kernel", e.key)) / 1e3,
         "kernel_launches": sum(e.count for e in events),
         "kernels": [{"name": e.key[:90], "calls": e.count,
                      "device_ms": e.self_device_time_total / 1e3} for e in top],

@@ -209,12 +209,23 @@ def test_moe_combine_bwd_kernel_matches_plain_on_card(cuda_device, E, C, T):
         torch.testing.assert_close(x, z, atol=2e-2 * scale, rtol=0, msg=name)
 
 
+# Ragged N; the five norm shapes of a served batch-16 call (16-byte vectors
+# on 4-32 lanes a row); C = 100 and C = 7, not whole vectors (single
+# elements); one row; x 2 bytes past a 16-byte boundary (single elements).
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,C,dtype", [(1000, 32, torch.bfloat16), (257, 512, torch.bfloat16),
-                                       (300, 96, torch.float32)])
-def test_layer_norm_kernels_match_plain_on_card(cuda_device, N, C, dtype):
+@pytest.mark.parametrize("N,C,dtype,offset", [
+    (1000, 32, torch.bfloat16, 0), (257, 512, torch.bfloat16, 0), (300, 96, torch.float32, 0),
+    *[(16 * res * res, C, torch.bfloat16, 0)
+      for res, C in ((4, 512), (8, 256), (16, 128), (32, 64), (64, 32))],
+    (1000, 100, torch.bfloat16, 0), (777, 7, torch.bfloat16, 0), (1, 64, torch.bfloat16, 0),
+    (1000, 64, torch.bfloat16, 1)])
+def test_layer_norm_kernels_match_plain_on_card(cuda_device, N, C, dtype, offset):
     g = torch.Generator(device=cuda_device).manual_seed(N + C)
-    x = (torch.randn((N, C), generator=g, device=cuda_device) * 2 + 0.5).to(dtype)
+    x = torch.empty(N * C + offset, dtype=dtype, device=cuda_device)[offset:].view(N, C)
+    x.copy_(torch.randn((N, C), generator=g, device=cuda_device) * 2 + 0.5)
+    if offset:
+        assert x.data_ptr() % 16 == 2
+        assert tln.layer_norm_plan(N, C, dtype, False, 132).vec == 1
     scale = 1 + 0.1 * torch.randn(C, generator=g, device=cuda_device)
     bias = 0.1 * torch.randn(C, generator=g, device=cuda_device)
     dy = torch.randn((N, C), generator=g, device=cuda_device).to(dtype)
@@ -232,6 +243,27 @@ def test_layer_norm_kernels_match_plain_on_card(cuda_device, N, C, dtype):
         assert torch.equal(a, b), f"{name}: two calls differ"
         torch.testing.assert_close(a.float(), c.float(), rtol=0,
                                    atol=lim * c.float().abs().max().item(), msg=name)
+
+
+@pytest.mark.cuda
+def test_layer_norm_bwd_is_deterministic_at_res64(cuda_device):
+    """Three backward calls at the res-64 shape (262,144 rows, 132 blocks on
+    an H100): dscale and dbias bit-identical, so the blocks' partials are
+    summed in a fixed order and the ticket counter is back at 0 after each
+    call."""
+    N, C = 64 * 64 * 64, 32
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = (torch.randn((N, C), generator=g, device=cuda_device) * 2 + 0.5).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(C, generator=g, device=cuda_device)
+    dy = (torch.randn((N, C), generator=g, device=cuda_device) * 0.1).to(torch.bfloat16)
+    runs = [tln.layer_norm_bwd(x, scale, dy) for _ in range(3)]
+    torch.cuda.synchronize()
+    for name, i in (("dx", 0), ("dscale", 1), ("dbias", 2)):
+        assert all(torch.equal(runs[0][i], r[i]) for r in runs[1:]), name
+    want = tln.layer_norm_bwd_reference(x, scale, dy)
+    for name, a, c in zip(("dscale", "dbias"), runs[0][1:], want[1:]):
+        # fp32 sums over N rows in other orders
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-3 * c.abs().max().item(), msg=name)
 
 
 # Every padded width (C = 32-512 and C = 48, padded to 64, and C = 16,
