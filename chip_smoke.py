@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's 64x64 serving path, training step, distributed
-training, opt-in kernel configuration and training CLI on one NVIDIA GPU and
-check them.
+training, opt-in kernel configuration, training CLI and training
+configurations (the flagship preset, the step's options, progressive
+training, one expert) on one NVIDIA GPU and check them.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and nvcc (it builds the port's kernels from `moegan_tpu_torch/ops/csrc`).
@@ -89,6 +90,26 @@ failure (non-zero exit, no result line):
    string prompt over HTTP (images
    64x64x3 and finite, the text embedding against the CPU's float32 tower,
    cosine >= 0.999); `save_checkpoint` and `restore_checkpoint` timed.
+12. the training configurations: (a) `tpu_flagship_config()` (every rung at
+   least 64 wide): the flash and MoE kernels against their plain versions at
+   its shapes at batch 64 (flash head_dim 32/16/32 at T 256/1024/4096, MoE
+   C = 512 at res 4-8 down to 64 at res 64), with times and bounds; 5 steps
+   at batch 64 (the default step's launches, ms/step) and its batch-4 step
+   against the CPU's to phase 7's limits; (b) the flagship with the hinge
+   loss, the switch balance over every block, `shared_fake` and 2 mini-steps
+   an update: 4 mini-steps at batch 64, each with the shared-fake launches
+   (3 / 3 flash, 5 / 5 fused MoE), the parameters unchanged bit for bit
+   after mini-steps 1 and 3 and changed after 2 and 4, and 2 batch-4
+   mini-steps against the CPU's to phase 7's limits; (c) `train_progressive`
+   through stages 16, 32 and 64 (one epoch each, batch 32, default
+   channels): the transferred-tensor counts that
+   tests/test_torch_progressive.py pins, each stage's steps and launches,
+   finite parameters; (d) one expert: the forward kernel (hard and soft) and
+   the backward at E = 1 against their plain versions, and a one-expert
+   generator's batch-16 call against the CPU's to phase 5's limit; (e) phase
+   9's two ranks under `shared_fake`, 2 mini-steps an update and the switch
+   balance over every block, 2 mini-steps against the single-card steps to
+   phase 9's limits.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -322,7 +343,7 @@ def moe_compare(tfm, args, hard, label):
     torch.cuda.synchronize()
     # The split partial sums are added in a fixed order: the same inputs give the same bits.
     check(torch.equal(out, out2) and torch.equal(p, p2), f"moe {label}: two calls differ")
-    if hard:
+    if hard and p.shape[-1] > 1:
         # Tokens whose top two soft probabilities are within fp32 noise may
         # pick either expert; both answers are right, so they are left out.
         soft = tfm.routing_probs(((args[0].float() @ args[1].float()) @ args[2] + args[3])
@@ -393,8 +414,9 @@ TRAIN_ATTN = ((16, 8, 16), (32, 2, 32), (64, 1, 32))  # (res, heads, head_dim)
 TRAIN_MOE = ((4, 512), (8, 256), (16, 128), (32, 64), (64, 32))  # (res, C)
 
 
-def flash_bwd_phase(dev, tfa):
-    """The backward at the three self-attention shapes of the 64x64 step at batch 64.
+def flash_bwd_phase(dev, tfa, shapes=TRAIN_ATTN, tag=""):
+    """The backward at the three self-attention shapes of the 64x64 step at batch 64
+    (`shapes`: (res, heads, head_dim); `tag` prefixes the per-shape lines).
 
     The kernel runs on the whole batch. Its plain version, the autograd of
     `flash_attention_reference`, holds [B, H, T, T] fp32 scores and
@@ -407,7 +429,7 @@ def flash_bwd_phase(dev, tfa):
 
     rows = []
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    for res, H, D in TRAIN_ATTN:
+    for res, H, D in shapes:
         T = res * res
         y = torch.randn((B_TRAIN, T, 3 * H * D), generator=g, device=dev).to(torch.bfloat16)
         q, k, v = (y[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D)) for i in range(3))
@@ -431,9 +453,11 @@ def flash_bwd_phase(dev, tfa):
             lse_err = max(lse_err, (lse[i:i + 16] - lse_ref).abs().max().item())
             del o_ref, lse_ref
         check(o_err <= 4 * 2.0 ** -8 * o_max,
-              f"flash fwd res {res} batch {B_TRAIN}: max |o - plain| {o_err} (max |o| {o_max})")
+              f"flash fwd {tag}res {res} batch {B_TRAIN}: max |o - plain| {o_err} (max |o| "
+              f"{o_max})")
         check(lse_err <= lse_tol,
-              f"flash fwd res {res} batch {B_TRAIN}: max |lse - plain| {lse_err} > {lse_tol}")
+              f"flash fwd {tag}res {res} batch {B_TRAIN}: max |lse - plain| {lse_err} > "
+              f"{lse_tol}")
         # The forward as the step launches it: 3 calls without lse (the D
         # phase's fake), 3 with (under autograd), beside SDPA's forward
         # without grad and with grad (where it keeps its logsumexp).
@@ -459,7 +483,8 @@ def flash_bwd_phase(dev, tfa):
         torch.cuda.synchronize()
         errs, refs = [], []
         for name, a, b, c in zip("qkv", got, again, want):
-            check(torch.equal(a, b), f"flash bwd res {res}: two calls give different d{name}")
+            check(torch.equal(a, b), f"flash bwd {tag}res {res}: two calls give different "
+                                     f"d{name}")
             err = (a[:nb].float() - c.float()).abs().max().item()
             ref = c.float().abs().max().item()
             # The kernel rounds p and ds to bf16 before their products and
@@ -468,7 +493,7 @@ def flash_bwd_phase(dev, tfa):
             # (2^-9 relative each, of both signs) stay within a few bf16
             # ulps of the largest gradient.
             tol = 8 * 2.0 ** -8 * ref
-            check(err <= tol, f"flash bwd res {res}: max |d{name} - plain| {err} > {tol}")
+            check(err <= tol, f"flash bwd {tag}res {res}: max |d{name} - plain| {err} > {tol}")
             errs.append(err)
             refs.append(ref)
         del want
@@ -506,24 +531,25 @@ def flash_bwd_phase(dev, tfa):
                          fwd_library_ms=fwd_lib_ms, fwd_lse_library_ms=fwd_lse_lib_ms,
                          fwd_device_ms=fwd_dev_ms, fwd_lse_device_ms=fwd_lse_dev_ms,
                          fwd_library_device_ms=fwd_lib_dev_ms))
-        print("flash_attention_bwd " + json.dumps(rows[-1]), flush=True)
+        print(f"flash_attention_bwd {tag}" + json.dumps(rows[-1]), flush=True)
         del q, k, v, y, do, o, lse, got, again, qt, kt, vt
         torch.cuda.empty_cache()
     return rows
 
 
-def moe_bwd_phase(dev, tfm):
+def moe_bwd_phase(dev, tfm, shapes=TRAIN_MOE, tag="", batch=B_TRAIN, E=4):
     """`FusedMoEFunction` (both kernels) against the autograd of `moe_ffn_reference`,
-    all nine gradients, at the five MoE blocks of the 64x64 step at batch 64."""
+    all nine gradients, at the five MoE blocks of the 64x64 step at batch 64
+    (`shapes`: (res, C); `E` experts; `tag` prefixes the per-shape lines)."""
     rows = []
     names = ("x", "fw", "cw_f", "text_logits", "inv_temp", "w1", "b1", "w2", "b2")
-    for res, C in TRAIN_MOE:
-        T = B_TRAIN * res * res
-        args = moe_args(dev, C, T, seed=100 + res)
+    for res, C in shapes:
+        T = batch * res * res
+        args = moe_args(dev, C, T, E=E, seed=100 + res)
         args[4] = args[4].clone()
         g = torch.Generator(device=dev).manual_seed(SEED + res)
         dout = (torch.randn((T, C), generator=g, device=dev) * 0.1).to(torch.bfloat16)
-        dprobs = torch.randn((T, 4), generator=g, device=dev) * 0.1
+        dprobs = torch.randn((T, E), generator=g, device=dev) * 0.1
 
         def grads(fn):
             leaves = [a.detach().requires_grad_(True) for a in args]
@@ -537,13 +563,13 @@ def moe_bwd_phase(dev, tfm):
         torch.cuda.synchronize()
         # The soft forward at the training T, to the limits of moe_compare.
         check(torch.equal(out, out2) and torch.equal(probs, probs2),
-              f"moe fwd res {res} batch {B_TRAIN}: two calls differ")
+              f"moe fwd {tag}res {res} batch {batch}: two calls differ")
         out_err = (out.float() - out_ref.float()).abs().max().item()
         out_max = out_ref.float().abs().max().item()
         p_err = (probs - probs_ref).abs().max().item()
         check(out_err <= 4 * 2.0 ** -8 * out_max,
-              f"moe fwd res {res} batch {B_TRAIN}: max |out - plain| {out_err} (max {out_max})")
-        check(p_err <= 1e-5, f"moe fwd res {res} batch {B_TRAIN}: max |probs - plain| {p_err}")
+              f"moe fwd {tag}res {res} batch {batch}: max |out - plain| {out_err} (max {out_max})")
+        check(p_err <= 1e-5, f"moe fwd {tag}res {res} batch {batch}: max |probs - plain| {p_err}")
         del out, out2, out_ref, probs, probs2, probs_ref
         # The soft forward as the step launches it (twice a step: G and D phases).
         fwd_ms = time_ms(lambda: tfm.fused_moe_ffn(*args, hard=False), 10)
@@ -551,7 +577,7 @@ def moe_bwd_phase(dev, tfm):
         p_fwd = tfm.fused_moe_ffn(*args, hard=False)[1]
         errs = {}
         for name, a, b, c in zip(names, got, again, want):
-            check(torch.equal(a, b), f"moe bwd res {res}: two calls give different d{name}")
+            check(torch.equal(a, b), f"moe bwd {tag}res {res}: two calls give different d{name}")
             err = (a.float() - c.float()).abs().max().item()
             ref = c.float().abs().max().item()
             # Relative to the largest |grad|. The weight gradients sum up to
@@ -560,7 +586,7 @@ def moe_bwd_phase(dev, tfm):
             # sums and the plain version does not, and the gradients of the
             # bf16 weights are rounded to bf16 on both sides.
             tol = 2e-2 * ref
-            check(err <= tol, f"moe bwd res {res}: max |d{name} - plain| {err} > {tol}")
+            check(err <= tol, f"moe bwd {tag}res {res}: max |d{name} - plain| {err} > {tol}")
             errs[name] = [err, ref]
         x, fw, cw, tl, it, w1, b1, w2, b2 = args
         # As FusedMoEFunction launches it, reading the forward's routing.
@@ -570,7 +596,7 @@ def moe_bwd_phase(dev, tfm):
                                                     probs=p_fwd), 5)
         plain_ms = time_ms(lambda: tfm.moe_ffn_bwd_reference(x, fw, cw, tl, it, w1, b1, w2, b2,
                                                              dout), 3)
-        E, F_ = 4, 4 * C
+        F_ = 4 * C
         flops = 10.0 * T * C * F_ * E
         # x and dout read (bf16), the weights read (bf16), dx and dp, the
         # weight and bias gradients written (fp32).
@@ -599,7 +625,7 @@ def moe_bwd_phase(dev, tfm):
                          fwd_gelu_floor_ms=gelu_floor,
                          plan=list(tfm.bwd_kernel_plan(T, C, F_, E, dev)),
                          fwd_plan=list(tfm.kernel_plan(T, C, F_, E, dev))))
-        print("fused_moe_bwd " + json.dumps(rows[-1]), flush=True)
+        print(f"fused_moe_bwd {tag}" + json.dumps(rows[-1]), flush=True)
         del got, again, want, args, dout, dprobs, p_fwd
         torch.cuda.empty_cache()
     return rows
@@ -740,8 +766,15 @@ def pinned_routing(routing):
         moe_mod.fused_moe_ffn = plain
 
 
-def generator_phase(cfg, state_dict):
-    """One batch-4 call on the card (kernels, bf16) against the CPU (plain versions, float32).
+def generator_phase(cfg, state_dict, n=4, label="generator_vs_cpu", same_precision=False):
+    """One batch-4 (or `n`, a multiple of 4) call on the card (kernels, bf16)
+    against the CPU (plain versions, float32).
+
+    With `same_precision` the CPU also runs its plain versions in bf16, and
+    the limit holds the card's distance from float32 to that run's own
+    distance plus the limit: a generator whose images grow large before
+    clipping can be further from float32 in bf16 than the limit, plain
+    versions or kernels, and the kernels may add no more than the limit.
 
     Hard routing turns bf16 noise into a different expert for the few
     tokens whose top two experts are nearly tied, which moves their pixels
@@ -753,9 +786,9 @@ def generator_phase(cfg, state_dict):
     from moegan_tpu_torch.models.generator import AuroraGenerator
 
     rng = np.random.default_rng(SEED + 1)
-    z = torch.from_numpy(rng.standard_normal((4, 512)).astype(np.float32))
-    txt = torch.from_numpy(rng.standard_normal((4, 512)).astype(np.float32))
-    psi = torch.tensor([0.5, 0.7, 0.9, 1.0])
+    z = torch.from_numpy(rng.standard_normal((n, 512)).astype(np.float32))
+    txt = torch.from_numpy(rng.standard_normal((n, 512)).astype(np.float32))
+    psi = torch.tensor([0.5, 0.7, 0.9, 1.0]).repeat(n // 4)
     card = Sampler(cfg, state_dict, device="cuda")
     with torch.inference_mode():
         out_card = card.gen(z.cuda(), txt.cuda(), psi.cuda())
@@ -770,7 +803,7 @@ def generator_phase(cfg, state_dict):
         with torch.inference_mode():
             held = cpu(z, txt, psi)
     check(np.isfinite(img_card).all(), "card images are not finite")
-    check(img_card.shape == (4, 64, 64, 3), f"image shape {img_card.shape}")
+    check(img_card.shape == (n, 64, 64, 3), f"image shape {img_card.shape}")
     for a, b in zip(routing_card, held.routing):
         check(torch.equal(a, b), "pinned routing differs from the card's")
     stats = {
@@ -779,14 +812,24 @@ def generator_phase(cfg, state_dict):
         "top1_agreement": [float((a.argmax(-1) == b.argmax(-1)).float().mean())
                            for a, b in zip(routing_card, free.routing)],
     }
-    print("generator_vs_cpu " + json.dumps(stats), flush=True)
+    if same_precision:
+        cpu_bf16 = AuroraGenerator(cfg).eval()
+        cpu_bf16.load_state_dict(state_dict)
+        with pinned_routing(routing_card):
+            with torch.inference_mode():
+                plain = cpu_bf16(z, txt, psi).image.float().numpy()
+        stats["cpu_bf16_pinned"] = image_stats(img_card, plain)
+        stats["cpu_bf16_vs_float32"] = image_stats(plain, held.image.numpy())
+    print(f"{label} " + json.dumps(stats), flush=True)
     # bf16 activations against float32 with the same routing: each bf16
     # rounding is 2^-9 relative and the path has a few dozen of them in
     # sequence (5 blocks of convs, attention, MoE), so the raw images agree
     # to a few percent of their range.
     tol = 0.05
     rel = stats["pinned"]["raw_max_rel_diff"]
-    check(rel <= tol, f"generator vs CPU (pinned routing): max |diff| / max |image| {rel} > {tol}")
+    if same_precision:
+        tol += stats["cpu_bf16_vs_float32"]["raw_max_rel_diff"]
+    check(rel <= tol, f"{label} (pinned routing): max |diff| / max |image| {rel} > {tol}")
     return stats
 
 
@@ -838,8 +881,8 @@ def epoch0_schedule(cfg):
             * kl_annealing_factor(0, cfg.loss.kl_annealing_epochs)}
 
 
-def train_phase(smi, expected=EXPECTED_STEP_LAUNCHES, label="train"):
-    """5 steps of the default 64x64 TrainConfig at batch 64 through
+def train_phase(smi, expected=EXPECTED_STEP_LAUNCHES, label="train", cfg=None):
+    """5 steps of the default 64x64 TrainConfig (or `cfg`) at batch 64 through
     `create_train_state` + `make_train_step`, random weights from the seed and
     a synthetic batch. Every step's kernel launches are counted on their own
     and must be `expected`."""
@@ -847,7 +890,7 @@ def train_phase(smi, expected=EXPECTED_STEP_LAUNCHES, label="train"):
     from moegan_tpu_torch.train.state import create_train_state
     from moegan_tpu_torch.train.step import make_train_step
 
-    cfg = TrainConfig()
+    cfg = cfg or TrainConfig()
     state = create_train_state(cfg, device="cuda", seed=SEED)
     step = make_train_step(cfg)
     params = dict(state.generator.named_parameters(prefix="generator"))
@@ -913,35 +956,54 @@ def cosine(a, b):
     return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
 
 
-def train_vs_cpu_phase(label="train_vs_cpu"):
-    """One full-width step at batch 4 on the card (kernels, bf16) and on the CPU
-    (plain versions, float32) from the same weights, batch and noise. Adam's
-    first moment after one step is (1 - b1) times the clipped gradient, so its
-    cosine between the two is the gradients' cosine."""
+def train_vs_cpu_phase(label="train_vs_cpu", cfg=None, steps=1):
+    """One full-width step (or `steps` mini-steps) of the default TrainConfig (or
+    `cfg`) at batch 4 on the card (kernels, bf16) and on the CPU (plain
+    versions, float32) from the same weights, batches and noise. Adam's first
+    moment after one update is (1 - b1) times the clipped (mean) gradient, so
+    its cosine between the two is the gradients' cosine."""
     from moegan_tpu_torch.config import TrainConfig
     from moegan_tpu_torch.train.state import create_train_state
     from moegan_tpu_torch.train.step import draw_noise, make_train_step
 
-    cfg = TrainConfig(batch_size=4)
+    cfg = (cfg or TrainConfig()).replace(batch_size=4)
     cpu_cfg = cfg.replace(generator=cfg.generator.replace(compute_dtype="float32"),
                           discriminator=cfg.discriminator.replace(compute_dtype="float32"))
     torch.set_num_threads(os.cpu_count() or 1)
-    batch = synthetic_batch(4, 64, SEED + 5, "cpu")
+    batches = [synthetic_batch(4, 64, SEED + 5 + 100 * i, "cpu") for i in range(steps)]
     sched = epoch0_schedule(cfg)
     results = {}
+    # D's logits of each call; the last call of a step is the G loss's D(fake).
+    logits = {"card": [], "cpu": []}
     for name, c, dev in (("card", cfg, "cuda"), ("cpu", cpu_cfg, "cpu")):
         state = create_train_state(c, device=dev, seed=SEED + 6)
-        noise = draw_noise(state.generator, 4, torch.Generator().manual_seed(SEED + 7),
-                           device="cpu")
+        calls = []
+        hook = state.discriminator.register_forward_hook(
+            lambda mod, args, out: calls.append(out.detach().float().cpu()))
+        step = make_train_step(c)
+        noise_gen = torch.Generator().manual_seed(SEED + 7)
         t0 = time.perf_counter()
-        state, metrics = make_train_step(c)(state, batch, sched, noise=noise)
+        each = []
+        for batch in batches:
+            noise = draw_noise(state.generator, 4, noise_gen, device="cpu")
+            state, metrics = step(state, batch, sched, noise=noise)
+            each.append({k: v.cpu() for k, v in metrics.items()})
+            logits[name].append(calls[-1])
+        hook.remove()
         if dev == "cuda":
             torch.cuda.synchronize()
-        results[name] = (state, {k: v.cpu() for k, v in metrics.items()},
-                         time.perf_counter() - t0)
+        results[name] = (state, each, time.perf_counter() - t0)
     (card, m_card, _), (cpu, m_cpu, cpu_s) = results["card"], results["cpu"]
-    losses = {k: [float(m_card[k]), float(m_cpu[k])] for k in
-              ("d_loss", "r1_loss", "d_total", "g_loss", "g_total", "kl_loss", "balance_loss")}
+    names = ("d_loss", "r1_loss", "d_total", "g_loss", "g_total", "kl_loss", "balance_loss")
+    each_losses = [{k: [float(a[k]), float(b[k])] for k in names} for a, b in zip(m_card, m_cpu)]
+    losses = each_losses[-1]
+    # The hinge G loss is -mean D(fake), a mean of logits of both signs that can
+    # sit near 0: 5 % of itself says nothing there. Its limit (and g_total's)
+    # adds 5 % of the logits' mean magnitude, the scale of each term it averages.
+    hinge_scale = [float(x.abs().mean()) if cfg.loss.gan_loss == "hinge" else 0.0
+                   for x in logits["cpu"]]
+    check(int(card.g_opt.count) == int(cpu.g_opt.count) == 1,
+          f"{label}: optimizer count {int(card.g_opt.count)} / {int(cpu.g_opt.count)}, want 1")
     groups = {}
     for net, opt_card, opt_cpu, module in (
             ("generator", card.g_opt, cpu.g_opt, cpu.generator),
@@ -957,14 +1019,21 @@ def train_vs_cpu_phase(label="train_vs_cpu"):
             off += p.numel()
         for top, (lo, hi) in spans.items():
             groups[f"{net}.{top}"] = cosine(a[lo:hi], b[lo:hi])
-    print(f"{label} " + json.dumps({"losses_card_cpu": losses, "grad_cosine": groups,
-                                    "cpu_step_s": cpu_s}), flush=True)
+    row = {"losses_card_cpu": losses, "grad_cosine": groups, "cpu_step_s": cpu_s}
+    if cfg.loss.gan_loss == "hinge":
+        row["g_phase_logit_mean_abs_cpu"] = hinge_scale
+    if steps > 1:
+        row["losses_card_cpu_each_step"] = each_losses
+    print(f"{label} " + json.dumps(row), flush=True)
     # bf16 activations and weights against float32, through two generator
     # passes, four discriminator passes and a double backward: each bf16
     # rounding is 2^-9 relative, a few dozen in sequence.
-    for k, (a, b) in losses.items():
-        lim = 0.05 * abs(b) + (1e-4 if k == "balance_loss" else 1e-6)
-        check(abs(a - b) <= lim, f"{label}: {k} card {a} cpu {b} (limit {lim})")
+    for i, step_losses in enumerate(each_losses):
+        for k, (a, b) in step_losses.items():
+            lim = 0.05 * abs(b) + (1e-4 if k == "balance_loss" else 1e-6)
+            if k in ("g_loss", "g_total"):
+                lim += 0.05 * hinge_scale[i]
+            check(abs(a - b) <= lim, f"{label} step {i + 1}: {k} card {a} cpu {b} (limit {lim})")
     # The whole generator's gradient passes through more bf16 roundings (two
     # generator passes and D) than the shallow discriminator's.
     for k, c in groups.items():
@@ -1115,8 +1184,9 @@ def flat_moments(state):
     return out
 
 
-def dist_rank(rank, port, out_dir, batch, noise):
-    """One rank of phase 9 (run in a spawned process on cuda:0, gloo)."""
+def dist_rank(rank, port, out_dir, batches, noises, cfg_dict, loop):
+    """One rank of phase 9 (run in a spawned process on cuda:0, gloo): the steps
+    on the given global batches and noise, then with `loop` the training loop."""
     import datetime
 
     sys.path.insert(0, ROOT)
@@ -1125,6 +1195,7 @@ def dist_rank(rank, port, out_dir, batch, noise):
         import torch.distributed as dist
 
         import moegan_tpu_torch.train.loop as loop_mod
+        from moegan_tpu_torch.config import TrainConfig
         from moegan_tpu_torch.data.datasets import synthetic_dataset
         from moegan_tpu_torch.losses.gan import kl_annealing_factor, temperature_factor
         from moegan_tpu_torch.parallel.api import setup_distributed_training
@@ -1133,23 +1204,31 @@ def dist_rank(rank, port, out_dir, batch, noise):
         torch.backends.cudnn.allow_tf32 = False
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                                 world_size=DIST_RANKS, timeout=datetime.timedelta(seconds=300))
-        cfg = dist_cfg()
+        cfg = TrainConfig.from_dict(cfg_dict)
         sched = {"temperature_factor": temperature_factor(0),
                  "effective_kl_weight": cfg.loss.kl_weight
                  * kl_annealing_factor(0, cfg.loss.kl_annealing_epochs)}
 
-        # (a) one step of the distributed step on a fixed global batch and noise
+        # (a) the distributed step on fixed global batches and noise
         mesh, state, step = setup_distributed_training(cfg, device="cuda:0")
         result["mesh"] = [list(mesh.shape), mesh.data_index, mesh.expert_index]
-        torch.cuda.synchronize()
-        reset_counts()
-        state, metrics = step(state, batch, sched, noise=noise)
-        torch.cuda.synchronize()
-        result["step_launches"] = launch_counts()
-        result["step_metrics"] = {k: v.tolist() for k, v in metrics.items()}
+        result["step_launches"], result["step_metrics"] = [], []
+        for batch, noise in zip(batches, noises):
+            torch.cuda.synchronize()
+            reset_counts()
+            state, metrics = step(state, batch, sched, noise=noise)
+            torch.cuda.synchronize()
+            result["step_launches"].append(launch_counts())
+            result["step_metrics"].append({k: v.tolist() for k, v in metrics.items()})
         result["moments"] = flat_moments(state)
+        result["opt"] = [[o.count.item(), o.notfinite_count.item()]
+                         for o in (state.g_opt, state.d_opt)]
         del state, step
         torch.cuda.empty_cache()
+        if not loop:
+            dist.barrier()
+            dist.destroy_process_group()
+            return
 
         # (b) train_aurora_gan: one epoch of 3 steps at global batch 64, one
         # validation batch. The step and eval functions are wrapped to count
@@ -1205,10 +1284,12 @@ def dist_rank(rank, port, out_dir, batch, noise):
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def distributed_phase(smi):
+def distributed_phase(smi, cfg=None, steps=1, loop=True, expected=DIST_STEP_LAUNCHES,
+                      label="distributed"):
     """Phase 9: two ranks (data 1 x expert 2) on cuda:0 over gloo, spawned after every
-    kernel was built in this process. (a) one distributed step against the
-    single-process step on the same card, weights, batch and noise; (b)
+    kernel was built in this process. (a) one distributed step (or `steps`
+    steps of `cfg`, default `dist_cfg()`) against the single-process step on
+    the same card, weights, batches and noise; (b) with `loop`,
     train_aurora_gan for one epoch of 3 steps and one validation batch."""
     import socket
 
@@ -1217,17 +1298,24 @@ def distributed_phase(smi):
     from moegan_tpu_torch.train.state import create_train_state
     from moegan_tpu_torch.train.step import draw_noise, make_train_step
 
-    cfg = dist_cfg()
-    batch = synthetic_batch(cfg.batch_size, 64, SEED + 11, "cpu")
+    cfg = cfg or dist_cfg()
+    batches = [synthetic_batch(cfg.batch_size, 64, SEED + 11 + 100 * i, "cpu")
+               for i in range(steps)]
     state = create_train_state(cfg, device="cuda", seed=cfg.seed)
-    noise = draw_noise(state.generator, cfg.batch_size, torch.Generator().manual_seed(SEED + 12),
-                       device="cpu")
+    noise_gen = torch.Generator().manual_seed(SEED + 12)
+    noises = [draw_noise(state.generator, cfg.batch_size, noise_gen, device="cpu")
+              for _ in range(steps)]
     sched = epoch0_schedule(cfg)
-    state, single_metrics = make_train_step(cfg)(state, batch, sched, noise=noise)
+    step = make_train_step(cfg)
+    single_each = []
+    for batch, noise in zip(batches, noises):
+        state, metrics = step(state, batch, sched, noise=noise)
+        single_each.append({k: v.tolist() for k, v in metrics.items()})
     torch.cuda.synchronize()
     single_moments = flat_moments(state)
-    single_metrics = {k: v.tolist() for k, v in single_metrics.items()}
-    del state
+    check(state.g_opt.count.item() == 1, f"{label}: single-card optimizer count "
+                                         f"{state.g_opt.count.item()}")
+    del state, step
     torch.cuda.empty_cache()
 
     with socket.socket() as sock:
@@ -1236,7 +1324,8 @@ def distributed_phase(smi):
     out_dir = tempfile.mkdtemp(prefix="moegan_smoke_dist_")
     ctx = mp.get_context("spawn")
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=dist_rank, args=(r, port, out_dir, batch, noise))
+    procs = [ctx.Process(target=dist_rank, args=(r, port, out_dir, batches, noises,
+                                                 cfg.to_dict(), loop))
              for r in range(DIST_RANKS)]
     try:
         for p in procs:
@@ -1254,13 +1343,13 @@ def distributed_phase(smi):
                 p.kill()
                 p.join(10)
     wall_s = time.perf_counter() - t0
-    check(not hung, f"distributed: ranks {hung} still ran after {DIST_TIMEOUT_S} s")
+    check(not hung, f"{label}: ranks {hung} still ran after {DIST_TIMEOUT_S} s")
     results = []
     for r, p in enumerate(procs):
         path = os.path.join(out_dir, f"rank{r}.pt")
         res = torch.load(path, weights_only=False) if os.path.exists(path) else {}
-        check("error" not in res, f"distributed rank {r} failed:\n{res.get('error')}")
-        check(p.exitcode == 0 and res, f"distributed rank {r}: exit code {p.exitcode}")
+        check("error" not in res, f"{label} rank {r} failed:\n{res.get('error')}")
+        check(p.exitcode == 0 and res, f"{label} rank {r}: exit code {p.exitcode}")
         results.append(res)
     shutil.rmtree(out_dir, ignore_errors=True)
 
@@ -1268,49 +1357,61 @@ def distributed_phase(smi):
               "note": "two ranks sharing one card over gloo: not a multi-GPU number"}
     losses = ("d_loss", "r1_loss", "d_total", "g_loss", "g_total", "kl_loss", "balance_loss")
     for r, res in enumerate(results):
-        check(res["mesh"] == [[1, DIST_RANKS], 0, r], f"distributed rank {r}: mesh {res['mesh']}")
-        check(res["step_launches"] == DIST_STEP_LAUNCHES,
-              f"distributed rank {r}: step launches {res['step_launches']}")
-        for k in losses:
-            a, b = res["step_metrics"][k], single_metrics[k]
-            # The sharded path routes through the router in fp32 on x as it is;
-            # the fused kernel's router works from bf16 tokens and weights.
-            # bf16 activations over two generator passes and four D passes.
-            lim = 0.02 * abs(b) + (1e-4 if k == "balance_loss" else 1e-6)
-            check(abs(a - b) <= lim, f"distributed rank {r}: {k} {a} against single {b}")
+        check(res["mesh"] == [[1, DIST_RANKS], 0, r], f"{label} rank {r}: mesh {res['mesh']}")
+        for i, (launched, got, want) in enumerate(zip(res["step_launches"], res["step_metrics"],
+                                                      single_each)):
+            check(launched == expected, f"{label} rank {r} step {i + 1}: launches {launched}")
+            for k in losses:
+                a, b = got[k], want[k]
+                # The sharded path routes through the router in fp32 on x as it
+                # is; the fused kernel's router works from bf16 tokens and
+                # weights. bf16 activations over two generator passes and four
+                # D passes.
+                lim = 0.02 * abs(b) + (1e-4 if k == "balance_loss" else 1e-6)
+                check(abs(a - b) <= lim, f"{label} rank {r} step {i + 1}: {k} {a} against "
+                                         f"single {b}")
+        check(res["opt"] == [[1, 0], [1, 0]], f"{label} rank {r}: optimizer counts {res['opt']}")
         cos = {net: cosine(res["moments"][net], single_moments[net])
                for net in ("generator", "discriminator")}
         for net, c in cos.items():
-            check(c >= 0.99, f"distributed rank {r}: gradient cosine of {net} {c} < 0.99")
+            check(c >= 0.99, f"{label} rank {r}: gradient cosine of {net} {c} < 0.99")
+        report[f"rank{r}"] = {
+            "step_vs_single": [{k: [got[k], want[k]] for k in losses}
+                               for got, want in zip(res["step_metrics"], single_each)],
+            "grad_cosine": cos, "step_launches": res["step_launches"]}
+        if not loop:
+            continue
         calls = res["loop_calls"]
         check(len(calls["train"]) == 3 and len(calls["eval"]) == 1,
-              f"distributed rank {r}: {len(calls['train'])} steps, {len(calls['eval'])} evals")
+              f"{label} rank {r}: {len(calls['train'])} steps, {len(calls['eval'])} evals")
         for i, c in enumerate(calls["train"]):
-            check(c["launches"] == DIST_STEP_LAUNCHES,
-                  f"distributed rank {r} loop step {i + 1}: launches {c['launches']}")
+            check(c["launches"] == expected,
+                  f"{label} rank {r} loop step {i + 1}: launches {c['launches']}")
         check(calls["eval"][0]["launches"] == DIST_EVAL_LAUNCHES,
-              f"distributed rank {r} eval: launches {calls['eval'][0]['launches']}")
+              f"{label} rank {r} eval: launches {calls['eval'][0]['launches']}")
         check(res["loop_steps"] == 3 and res["loop_params_finite"],
-              f"distributed rank {r}: {res['loop_steps']} steps, params finite "
+              f"{label} rank {r}: {res['loop_steps']} steps, params finite "
               f"{res['loop_params_finite']}")
         check(res["loop_opt"] == [[3, 0], [3, 0]],
-              f"distributed rank {r}: optimizer counts {res['loop_opt']}")
+              f"{label} rank {r}: optimizer counts {res['loop_opt']}")
         check(len(res["loop_val"]) == 1 and all(np.isfinite(v) for v in res["loop_val"][0].values()),
-              f"distributed rank {r}: validation {res['loop_val']}")
-        report[f"rank{r}"] = {
-            "step_vs_single": {k: [res["step_metrics"][k], single_metrics[k]] for k in losses},
-            "grad_cosine": cos, "step_launches": res["step_launches"],
+              f"{label} rank {r}: validation {res['loop_val']}")
+        report[f"rank{r}"].update({
             "loop_step_ms": [c["ms"] for c in calls["train"]],
             "loop_eval_ms": calls["eval"][0]["ms"],
             "loop_launches_per_step": [c["launches"] for c in calls["train"]],
             "eval_launches": calls["eval"][0]["launches"], "val": res["loop_val"][0],
-            "peak_mem_gib": res["peak_mem_gib"]}
+            "peak_mem_gib": res["peak_mem_gib"]})
+    if not loop:
+        print(f"{label} " + json.dumps(report), flush=True)
+        # the main path's launches: rank 0's steps
+        return {k: sum(c[k] for c in results[0]["step_launches"]) for k in expected}, report
     step_ms = results[0]["loop_calls"]["train"]
     med = float(np.median([c["ms"] for c in step_ms]))
     report["median_step_ms_rank0"] = med
-    print(f"distributed (2 ranks sharing one card over gloo, not a multi-GPU number): "
+    print(f"{label} (2 ranks sharing one card over gloo, not a multi-GPU number): "
           f"{med:.1f} ms/step (median of 3, rank 0) on {smi}", flush=True)
-    print("distributed " + json.dumps(report), flush=True)
+    print(f"{label} " + json.dumps(report), flush=True)
     # the main path's launches: rank 0's loop, 3 steps and the validation batch
     launches = {k: sum(c["launches"][k] for c in step_ms) + results[0]["loop_calls"]["eval"][0][
         "launches"][k] for k in DIST_STEP_LAUNCHES}
@@ -1863,6 +1964,278 @@ def cli_phase(smi):
     return launches
 
 
+# --- phase 12: the training configurations ------------------------------------------------
+
+# tpu_flagship_config's attention (res, heads, head_dim) and MoE (res, C) rungs.
+FLAGSHIP_ATTN = ((16, 8, 32), (32, 8, 16), (64, 2, 32))
+FLAGSHIP_MOE = ((4, 512), (8, 512), (16, 256), (32, 128), (64, 64))
+# shared_fake: one differentiable generator forward a step (its flash forwards
+# keep lse for the backward) and its backward; no D-phase generator forward.
+SHARED_STEP_LAUNCHES = {**EXPECTED_STEP_LAUNCHES, "flash_attention_fwd": 3, "fused_moe_fwd": 5}
+DIST_SHARED_LAUNCHES = {**DIST_STEP_LAUNCHES, "flash_attention_fwd": 3, "moe_combine_fwd": 5}
+# Generator tensors carried into stages 32 and 64 of the default 16 -> 32 -> 64
+# ladder; tests/test_torch_progressive.py pins the same counts against the JAX package.
+PROGRESSIVE_TRANSFERS = {32: 192, 64: 245}
+PROGRESSIVE_BATCH = 32
+
+
+class LineLog:
+    """A MetricLogger that keeps its lines and metric names."""
+
+    def __init__(self):
+        self.lines, self.metrics = [], []
+
+    def log_line(self, msg):
+        self.lines.append(msg)
+
+    def log_metric(self, name, value, step=None):
+        self.metrics.append((name, float(value), step))
+
+    def log_metrics(self, metrics, step=None):
+        for k, v in metrics.items():
+            self.log_metric(k, v, step)
+
+    def log_vector(self, name, values, step=None):
+        self.lines.append(f"{name}: {values}")
+
+
+def with_options(cfg, hinge=True):
+    """`cfg` with shared_fake, gradient accumulation over 2 mini-steps, the switch
+    balance over every block and (with `hinge`) the hinge loss."""
+    loss = cfg.loss.replace(balance_kind="switch", balance_all_blocks=True)
+    if hinge:
+        loss = loss.replace(gan_loss="hinge")
+    return cfg.replace(shared_fake=True, gradient_accumulation_steps=2, loss=loss)
+
+
+def params_changed(params, before):
+    """Whether every tensor changed; only zero-initialised tensors that the loss
+    does not reach may stay as they were (weight decay moves every other one)."""
+    for k, p in params.items():
+        if torch.equal(p, before[k]) and bool(before[k].any()):
+            return False
+    return True
+
+
+def options_phase(smi, cfg):
+    """(b) 4 mini-steps of `cfg` (every option, 2 mini-steps an update) at batch 64:
+    each mini-step's launches are the shared-fake step's; the parameters stay
+    bit for bit after mini-steps 1 and 3 and change after 2 and 4."""
+    from moegan_tpu_torch.train.state import create_train_state
+    from moegan_tpu_torch.train.step import make_train_step
+
+    state = create_train_state(cfg, device="cuda", seed=SEED + 13)
+    step = make_train_step(cfg)
+    params = dict(state.generator.named_parameters(prefix="generator"))
+    params.update(state.discriminator.named_parameters(prefix="discriminator"))
+    sched = epoch0_schedule(cfg)
+    noise_gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    step_ms, launches, all_metrics = [], [], []
+    total = dict.fromkeys(SHARED_STEP_LAUNCHES, 0)
+    for i in range(4):
+        batch = synthetic_batch(cfg.batch_size, 64, SEED + 15 + i, "cuda")
+        before = {k: p.detach().clone() for k, p in params.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch, sched, generator=noise_gen)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        counts = launch_counts()
+        launches.append(counts)
+        for k, n in counts.items():
+            total[k] += n
+        all_metrics.append({k: v.tolist() for k, v in metrics.items()})
+        check(counts == SHARED_STEP_LAUNCHES,
+              f"options mini-step {i + 1}: launches {counts}, want {SHARED_STEP_LAUNCHES}")
+        for k, v in all_metrics[-1].items():
+            check(bool(np.isfinite(np.asarray(v)).all()), f"options mini-step {i + 1}: {k} = {v}")
+        if i % 2 == 0:
+            for k, p in params.items():
+                check(torch.equal(p, before[k]), f"options mini-step {i + 1}: {k} changed")
+        else:
+            check(params_changed(params, before),
+                  f"options mini-step {i + 1}: a parameter did not change")
+        del before
+    for opt in (state.g_opt, state.d_opt):
+        got = (opt.count.item(), opt.mini_step.item(), opt.notfinite_count.item())
+        check(got == (2, 0, 0), f"options: optimizer (count, mini_step, notfinite) {got}")
+    row = {"batch": cfg.batch_size, "mini_step_ms": step_ms,
+           "median_ms_mini_steps_2_4": float(np.median(step_ms[1:])),
+           "launches_per_mini_step": launches[-1],
+           "metrics_mini_step_4": {k: v for k, v in all_metrics[-1].items()
+                                   if not isinstance(v, list)}, "card": smi}
+    print(f"options (flagship, hinge, switch over all blocks, shared_fake, 2 mini-steps an "
+          f"update) batch {cfg.batch_size}: {row['median_ms_mini_steps_2_4']:.2f} ms/mini-step "
+          f"(median of 2-4) on {smi}", flush=True)
+    print("options " + json.dumps(row), flush=True)
+    return total, row
+
+
+def progressive_phase(smi):
+    """(c) `train_progressive` on the synthetic set through stages (16, 1), (32, 1),
+    (64, 1) at the default channels and batch 32: each stage's transferred
+    tensors, steps and launches, finite parameters."""
+    from moegan_tpu_torch.config import TrainConfig
+    from moegan_tpu_torch.data.datasets import synthetic_dataset
+    from moegan_tpu_torch.train.progressive import train_progressive
+
+    cfg = TrainConfig(batch_size=PROGRESSIVE_BATCH, seed=SEED + 19, log_interval=1)
+    train = synthetic_dataset(2 * PROGRESSIVE_BATCH, 64, seed=SEED + 20)
+    val = synthetic_dataset(PROGRESSIVE_BATCH, 64, seed=SEED + 21)
+    log = LineLog()
+    stages = ((16, 1), (32, 1), (64, 1))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, stage_states = train_progressive(train, val, cfg=cfg, stages=stages, logger=log,
+                                            device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want = dict.fromkeys(EXPECTED_STEP_LAUNCHES, 0)
+    steps_per_stage = 2  # 64 images at batch 32; one validation batch of 32
+    for r, _ in stages:
+        n_attn = sum(1 for x in (16, 32, 64) if x <= r)  # flash at T >= 256
+        n_moe = int(math.log2(r // 4)) + 1  # one MoE per block from 4x4
+        want["flash_attention_fwd"] += steps_per_stage * 2 * n_attn + n_attn
+        want["flash_attention_bwd"] += steps_per_stage * n_attn
+        want["fused_moe_fwd"] += steps_per_stage * 2 * n_moe + n_moe
+        want["fused_moe_bwd"] += steps_per_stage * n_moe
+    check(launches == want, f"progressive: launches {launches}, want {want}")
+    transfers = [line for line in log.lines if line.startswith("transferred ")]
+    want_lines = [f"transferred {PROGRESSIVE_TRANSFERS[r]} generator tensors from the previous "
+                  f"stage" for r in (32, 64)]
+    check(transfers == want_lines, f"progressive: {transfers}, want {want_lines}")
+    check([r for r, _ in stage_states] == [16, 32, 64] and state is stage_states[-1][1],
+          "progressive: stages")
+    for r, s in stage_states:
+        check(s.generator.config.max_resolution == r and s.step == steps_per_stage
+              and s.g_opt.count.item() == steps_per_stage, f"progressive stage {r}: {s.step} steps")
+        for name, p in list(s.generator.named_parameters()) + list(
+                s.discriminator.named_parameters()):
+            check(bool(torch.isfinite(p).all()), f"progressive stage {r}: {name} is not finite")
+    vals = [(n, v) for n, v, _ in log.metrics if n.startswith("val_")]
+    check(len(vals) == 6 and all(np.isfinite(v) for _, v in vals), f"progressive: {vals}")
+    row = {"batch": PROGRESSIVE_BATCH, "stages": [list(x) for x in stages],
+           "transfers": transfers, "launches": launches, "wall_s": wall_s, "val": vals,
+           "card": smi}
+    print("progressive " + json.dumps(row), flush=True)
+    del state, stage_states
+    return launches, row
+
+
+def one_expert_phase(dev, tfm):
+    """(d) the dense one-expert MoE: the forward kernel, hard and soft, and the
+    backward at E = 1 against their plain versions at the five MoE blocks of a
+    batch-16 call (every routing probability 1), then a one-expert generator's
+    batch-16 call on the card against the CPU's, to phase 5's limit beyond the
+    CPU's own bf16 distance from float32 (see `generator_phase`)."""
+    from moegan_tpu_torch.config import GeneratorConfig
+    from moegan_tpu_torch.models.generator import AuroraGenerator
+
+    rows = []
+    for res, C in TRAIN_MOE:
+        args = moe_args(dev, C, N * res * res, E=1, seed=400 + res)
+        for hard in (True, False):
+            err, p_err, _, p, scale = moe_compare(tfm, args, hard,
+                                                  f"E=1 res {res} {'hard' if hard else 'soft'}")
+            check(bool((p == 1.0).all()), f"moe E=1 res {res}: a routing probability is not 1")
+            rows.append({"res": res, "C": C, "hard": hard, "max_abs_err": err,
+                         "max_abs_ref": scale})
+    print("fused_moe_fwd E=1 " + json.dumps(rows), flush=True)
+    bwd_rows = moe_bwd_phase(dev, tfm, TRAIN_MOE, tag="E=1 ", batch=N, E=1)
+    cfg = GeneratorConfig(num_experts=1)
+    sd = AuroraGenerator(cfg, gen=torch.Generator().manual_seed(SEED + 22)).state_dict()
+    reset_counts()
+    # The dense generator's images reach |x| ~ 900 before clipping at this
+    # init, and bf16 puts the CPU's own plain versions ~0.1 of that from
+    # float32 (a 2^-10 change of z moves float32's own images by 0.026): the
+    # limit is phase 5's beyond what bf16 costs the plain versions.
+    stats = generator_phase(cfg, sd, n=N, label="one_expert_generator_vs_cpu",
+                            same_precision=True)
+    launches = launch_counts()
+    want = {**dict.fromkeys(EXPECTED_STEP_LAUNCHES, 0), "flash_attention_fwd": 3,
+            "fused_moe_fwd": 5}
+    check(launches == want, f"one-expert generator: launches {launches}, want {want}")
+    return launches, rows, bwd_rows, stats
+
+
+def training_configs_phase(dev, smi, tfa, tfm):
+    """Phase 12: (a) the flagship preset at full width, its kernels at their
+    shapes, 5 steps at batch 64 and the batch-4 step against the CPU's; (b) the
+    options together; (c) progressive training; (d) one expert; (e) phase 9's
+    distributed step under the options."""
+    from moegan_tpu_torch.config import tpu_flagship_config
+
+    out = {}
+    flagship = tpu_flagship_config()
+    gcfg = flagship.generator
+    attn = tuple((r, gcfg.heads_for(c), c // gcfg.heads_for(c)) for r, c in gcfg.channels.items()
+                 if r >= 16)
+    check(attn == FLAGSHIP_ATTN and tuple(gcfg.channels.items()) == FLAGSHIP_MOE,
+          f"flagship shapes {attn} {gcfg.channels}")
+    out["flash_rows"] = flash_bwd_phase(dev, tfa, FLAGSHIP_ATTN, tag="flagship ")
+    out["moe_rows"] = moe_bwd_phase(dev, tfm, FLAGSHIP_MOE, tag="flagship ")
+    torch.cuda.empty_cache()
+    out["flagship_launches"], out["flagship_row"] = train_phase(
+        smi, label="flagship", cfg=flagship)
+    torch.cuda.empty_cache()
+    train_vs_cpu_phase("flagship_vs_cpu", cfg=flagship)
+    torch.cuda.empty_cache()
+    out["options_launches"], out["options_row"] = options_phase(smi, with_options(flagship))
+    torch.cuda.empty_cache()
+    train_vs_cpu_phase("options_vs_cpu", cfg=with_options(flagship), steps=2)
+    torch.cuda.empty_cache()
+    out["progressive_launches"], out["progressive_row"] = progressive_phase(smi)
+    torch.cuda.empty_cache()
+    out["one_expert_launches"], *_ = one_expert_phase(dev, tfm)
+    torch.cuda.empty_cache()
+    out["distributed_options_launches"], _ = distributed_phase(
+        smi, cfg=with_options(dist_cfg(), hinge=False), steps=2, loop=False,
+        expected=DIST_SHARED_LAUNCHES, label="distributed_options")
+    torch.cuda.empty_cache()
+    return out
+
+
+def flagship_extras(p12) -> dict:
+    """The kernels line's numbers of rows 1-5 at the flagship preset's shapes,
+    batch 64, summed over one step's launches of each kernel as the default
+    rows are: measured times, the bound of that work, the library call's time."""
+    fr, mr = p12["flash_rows"], p12["moe_rows"]
+
+    def total(rows, key):
+        return sum(r[key] for r in rows)
+
+    # the forward's 6 launches a step: each shape without and with lse
+    fwd_bound = sum(2 * bound_ms(4.0 * r["B"] * r["H"] * r["T"] ** 2 * r["D"],
+                                 4.0 * r["B"] * r["T"] * r["H"] * r["D"] * 2)[0] for r in fr)
+    return {
+        "flash_attention_fwd": {
+            "flagship_train_ms": total(fr, "fwd_ms") + total(fr, "fwd_lse_ms"),
+            "flagship_train_device_ms": total(fr, "fwd_device_ms") + total(fr,
+                                                                           "fwd_lse_device_ms"),
+            "flagship_train_bound_ms": fwd_bound,
+            "flagship_train_library_ms": total(fr, "fwd_library_ms") + total(
+                fr, "fwd_lse_library_ms")},
+        "flash_attention_bwd": {
+            "flagship_ms": total(fr, "ms"), "flagship_device_ms": total(fr, "device_ms"),
+            "flagship_bound_ms": total(fr, "bound_ms"), "flagship_plain_ms": total(fr, "plain_ms"),
+            "flagship_library_ms": total(fr, "library_ms")},
+        "fused_moe_fwd": {
+            "flagship_train_fwd_set_ms": total(mr, "fwd_ms"),
+            "flagship_train_fwd_set_device_ms": total(mr, "fwd_device_ms"),
+            "flagship_train_fwd_set_bound_ms": total(mr, "fwd_bound_ms")},
+        "fused_moe_bwd": {
+            "flagship_ms": total(mr, "ms"), "flagship_device_ms": total(mr, "device_ms"),
+            "flagship_bound_ms": total(mr, "bound_ms"), "flagship_plain_ms": total(mr, "plain_ms"),
+            "flagship_max_abs_err": max(r["max_abs_err"] for r in mr)},
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU")
@@ -1909,6 +2282,8 @@ def main() -> None:
         launches[name] = opt_launches[name]
     torch.cuda.empty_cache()
     cli_launches = cli_phase(smi)
+    torch.cuda.empty_cache()
+    p12 = training_configs_phase(dev, smi, tfa, tfm)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -1927,6 +2302,7 @@ def main() -> None:
                                 + total(flash_bwd_rows, "fwd_lse_device_ms")),
         },
         "flash_attention_bwd": {"device_ms": total(flash_bwd_rows, "device_ms")},
+
         "fused_moe_fwd": {
             "device_ms": total(moe_rows, "device_ms"),
             # the soft forward at batch 64, five launches (one a block); the
@@ -1944,6 +2320,8 @@ def main() -> None:
                                                      "library_cold_device_ms")}
            for name, rows in (("layer_norm_fwd", ln_fwd_rows), ("layer_norm_bwd", ln_bwd_rows))},
     }
+    for name, more in flagship_extras(p12).items():
+        extra.setdefault(name, {}).update(more)
     for name, rows, src, replaces, lib, shapes in (
         ("flash_attention_fwd", flash_rows, "moegan_tpu_torch/ops/csrc/flash_attention.cu",
          "moegan_tpu/ops/flash_attention.py:226", True, "serving, batch 16"),
@@ -2001,6 +2379,11 @@ def main() -> None:
             "shapes": shapes,
             # the launches of phase 11's default CLI run (4 steps, 2 validation batches)
             "cli_launches": cli_launches[name],
+            # phase 12's paths: the flagship's 5 steps, the options' 4 mini-steps,
+            # the progressive run, the one-expert generator call, the distributed
+            # options' 2 mini-steps (rank 0)
+            **{f"{path}_launches": p12[f"{path}_launches"][name] for path in (
+                "flagship", "options", "progressive", "one_expert", "distributed_options")},
             **extra.get(name, {}),
         })
     print(smi, flush=True)

@@ -12,9 +12,9 @@ writing `aurora_model_final.msgpack` (the JAX package's flax msgpack
 layout) and `generator_config.json`, which serving reads. Under `torchrun`
 (WORLD_SIZE > 1) the ranks train together over the process group, each on
 `cuda:LOCAL_RANK`, laid out as `--expert_parallelism` says (0: the largest
-size dividing the world size and the expert count). Settings the port's
-training step does not run (such as `--gradient_accumulation_steps 2`)
-raise before anything is loaded.
+size dividing the world size and the expert count).
+`--gradient_accumulation_steps k` applies an update every k steps, to the
+mean of their gradients.
 """
 
 from __future__ import annotations
@@ -112,11 +112,9 @@ def main(argv=None):
     from moegan_tpu_torch.data.datasets import ProcessedMSCOCODataset, synthetic_dataset
     from moegan_tpu_torch.parallel.sharding import gather_full
     from moegan_tpu_torch.train.loop import train_aurora_gan
-    from moegan_tpu_torch.train.step import check_supported
     from moegan_tpu_torch.utils.checkpoint import save_generator_params
     from moegan_tpu_torch.utils.metrics import MetricLogger, is_writer
 
-    check_supported(cfg)
     distributed = int(os.environ.get("WORLD_SIZE", 1)) > 1
     device = args.device
     if distributed and device == "cuda":

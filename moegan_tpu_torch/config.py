@@ -3,7 +3,9 @@
 `GeneratorConfig`, `DiscriminatorConfig`, `LossConfig`, `MeshConfig` and
 `TrainConfig` keep the JAX package's fields and defaults. The TPU-only
 fields (`use_pallas`, `remat_blocks`) are left out; `from_dict` skips them,
-and any other unknown key, in a JAX-written JSON.
+and any other unknown key, in a JAX-written JSON. `tpu_flagship_config` is
+the JAX package's wider preset and `coerce_hyperparameters` its
+string-to-type coercion of a hyperparameter dict, under the same names.
 """
 
 from __future__ import annotations
@@ -107,9 +109,11 @@ class DiscriminatorConfig(_JsonMixin):
 
 @dataclass(frozen=True)
 class LossConfig(_JsonMixin):
-    """Loss weights (moegan_tpu/config.py:154-192). The port's training step
-    runs the defaults (nonsaturating loss, CV balance of the last block) and
-    refuses the others. `clip_weights` weighs the multi-level CLIP loss of
+    """Loss weights (moegan_tpu/config.py:154-192). `gan_loss` is
+    "nonsaturating" or "hinge" (any other string trains the nonsaturating
+    loss, as in the JAX package); `balance_kind` "cv" or "switch", over the
+    last block or, with `balance_all_blocks`, averaged over every block.
+    `clip_weights` weighs the multi-level CLIP loss of
     each RGB tap by its resolution (JSON's string keys become ints);
     `clip_stop_gradient` computes the CLIP image features without gradient,
     as the reference does, so the loss is monitored but moves no weight."""
@@ -179,3 +183,43 @@ class TrainConfig(_JsonMixin):
             if isinstance(d.get(key), Mapping):
                 d[key] = sub.from_dict(d[key])
         return _from_dict(cls, d)
+
+
+def tpu_flagship_config(batch_size: int = 64) -> TrainConfig:
+    """The JAX package's wider preset (moegan_tpu/config.py:252-275): every rung
+    above 8 twice the default width, so every rung is at least 64 wide, and D
+    from base width 64. Not the parity configuration: other parameter shapes
+    and about 4x the work at the top rung."""
+    return TrainConfig(
+        batch_size=batch_size,
+        generator=GeneratorConfig(max_resolution=64,
+                                  channels={4: 512, 8: 512, 16: 256, 32: 128, 64: 64}),
+        discriminator=DiscriminatorConfig(max_resolution=64, base_channels=64),
+    )
+
+
+def coerce_hyperparameters(raw: Mapping[str, str]) -> dict:
+    """A hyperparameter dict whose values arrive as strings, typed by key
+    (moegan_tpu/config.py:278-304): integer keys through float, float keys,
+    "true"/"false" in any case to bools, everything else unchanged."""
+    int_keys = {
+        "epochs", "num_epochs", "batch_size", "kl_annealing_epochs",
+        "lr_warmup_epochs", "gradient_accumulation_steps", "seed",
+        "max_resolution", "log_interval",
+    }
+    float_keys = {
+        "learning_rate", "lr", "beta1", "beta2", "r1_gamma", "kl_weight",
+        "balance_weight", "clip_weight_64", "clip_weight_32",
+        "clip_weight_16", "clip_weight_8", "truncation_psi",
+    }
+    out: dict[str, Any] = {}
+    for k, v in raw.items():
+        if k in int_keys:
+            out[k] = int(float(v))
+        elif k in float_keys:
+            out[k] = float(v)
+        elif isinstance(v, str) and v.lower() in ("true", "false"):
+            out[k] = v.lower() == "true"
+        else:
+            out[k] = v
+    return out

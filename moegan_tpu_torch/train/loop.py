@@ -19,8 +19,10 @@ epoch (`utils.checkpoint.save_checkpoint`, the newest three kept); with
 `resume` the newest checkpoint there is restored and training continues at
 the epoch after it. Since the noise of a step is seeded by (cfg.seed, step)
 and the data order of an epoch by cfg.seed + epoch, a resumed run draws
-what the uninterrupted run would. Progressive training (transfer_from) is
-not ported yet.
+what the uninterrupted run would. `transfer_from`, a generator state dict
+of the previous progressive stage (`train.progressive`), is grafted into
+the new state where names and shapes match, before `resume` restores
+(under a mesh each rank grafts its own expert slices).
 """
 
 from __future__ import annotations
@@ -61,11 +63,6 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", 1))
 
 
-def _not_ported(transfer_from) -> None:
-    if transfer_from is not None:
-        raise NotImplementedError("transfer_from (waits for the port of progressive training)")
-
-
 def train_aurora_gan(
     dataset,
     val_dataset=None,
@@ -87,7 +84,6 @@ def train_aurora_gan(
     distributed); pass "cpu" for the plain versions. `backend` is the
     process group's when this call initialises it (default "nccl").
     """
-    _not_ported(transfer_from)
     log = logger or MetricLogger()
     loader = BatchLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed)
     steps_per_epoch = cfg.steps_per_epoch or loader.steps_per_epoch
@@ -100,6 +96,12 @@ def train_aurora_gan(
         state = create_train_state(cfg, device="cuda" if device is None else device)
         step_fn = make_train_step(cfg, steps_per_epoch)
     dev = state.generator.constant.device
+    if transfer_from is not None:
+        from moegan_tpu_torch.train.progressive import transfer_params
+
+        grafted, copied = transfer_params(transfer_from, state.generator.state_dict())
+        state.generator.load_state_dict(grafted)
+        log.log_line(f"transferred {copied} generator tensors from the previous stage")
     eval_fn = make_eval_step(cfg)
 
     start_epoch = 0

@@ -18,6 +18,15 @@ flat float32 buffers so that it matches optax step for step:
   updates in a row the update passes through. The choice is a select on
   the device, so the step never waits on the host.
 
+With `gradient_accumulation_steps` k > 1 the chain inside the skip is
+`optax.MultiSteps(chain(...), k)` (state.py:84-100): each call folds the
+raw gradient into the running mean `acc += (g - acc) / (mini_step + 1)`;
+the k-th call clips and applies AdamW to that mean and resets `acc`, every
+other call leaves the parameters, moments and count as they are. AdamW's
+count, which drives the learning-rate schedule, so counts emitted updates,
+not calls. The skip wraps the accumulator: a non-finite call leaves `acc`
+and `mini_step` too as they were.
+
 Parameters are updated in place (the JAX step returns new arrays).
 
 Under a mesh (`parallel.mesh`) every rank builds the full G and D from
@@ -31,8 +40,9 @@ skip or apply an update together.
 
 For checkpoints, `state_payload` turns the state into whole (unsharded)
 tensors by parameter name, AdamW's moments per parameter instead of flat
-buffers, and `load_state_payload` turns such a payload back into this
-rank's state under any layout.
+buffers (and the accumulator, when there is one), and
+`load_state_payload` turns such a payload back into this rank's state
+under any layout.
 """
 
 from __future__ import annotations
@@ -63,14 +73,22 @@ class AdamWState:
     mu: torch.Tensor  # flat fp32 first moment
     nu: torch.Tensor  # flat fp32 second moment
     notfinite_count: torch.Tensor  # int32 scalar: non-finite updates in a row
+    # Under gradient accumulation (MultiSteps): the flat fp32 running mean of
+    # this round's gradients and the int32 count of calls folded into it.
+    acc: torch.Tensor | None = None
+    mini_step: torch.Tensor | None = None
 
 
-def init_adamw(params) -> AdamWState:
+def init_adamw(params, every_k: int = 1) -> AdamWState:
+    """A fresh optimizer state; with `every_k` > 1, with an accumulator."""
     params = list(params)
     dev = params[0].device
     n = sum(p.numel() for p in params)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    return AdamWState(zero, torch.zeros(n, device=dev), torch.zeros(n, device=dev), zero.clone())
+    state = AdamWState(zero, torch.zeros(n, device=dev), torch.zeros(n, device=dev), zero.clone())
+    if every_k > 1:
+        state.acc, state.mini_step = torch.zeros(n, device=dev), zero.clone()
+    return state
 
 
 def _global_norm_and_finite(g: torch.Tensor, sizes, sharded, finite, mesh: Mesh):
@@ -98,16 +116,22 @@ def _global_norm_and_finite(g: torch.Tensor, sizes, sharded, finite, mesh: Mesh)
 def clipped_adamw_update(params, grads, state: AdamWState, lr_fn, clip: float, b1: float,
                          b2: float, weight_decay: float, eps: float = 1e-8,
                          max_consecutive_errors: int = MAX_CONSECUTIVE_ERRORS,
-                         mesh: Mesh | None = None, sharded=None) -> None:
-    """One optimizer update of `params` (a list of tensors) from `grads`, in place.
+                         mesh: Mesh | None = None, sharded=None, every_k: int = 1) -> None:
+    """One optimizer call on `params` (a list of tensors) from `grads`, in place.
 
-    Under `mesh`, `sharded[i]` says whether params[i] is this rank's slice
-    of an expert-sharded parameter; the grads are the data-group averages.
+    With `every_k` > 1 the call accumulates and only every k-th applies an
+    update (the state must come from `init_adamw(params, every_k)`). Under
+    `mesh`, `sharded[i]` says whether params[i] is this rank's slice of an
+    expert-sharded parameter; the grads are the data-group averages.
     """
     params = list(params)
     g = torch.cat([x.reshape(-1).float() for x in grads])
     p = torch.cat([x.reshape(-1).float() for x in params])
-    finite = torch.isfinite(g).all()
+    finite = torch.isfinite(g).all()  # of the incoming gradient: the skip wraps MultiSteps
+    if every_k > 1:
+        acc = state.acc + (g - state.acc) / (state.mini_step + 1)
+        emit = state.mini_step == every_k - 1
+        g = acc
     if mesh is None:
         norm = torch.sqrt(torch.sum(g * g))
     else:
@@ -121,10 +145,18 @@ def clipped_adamw_update(params, grads, state: AdamWState, lr_fn, clip: float, b
     nu_hat = nu / (1 - b2 ** count_inc.float())
     update = (mu_hat / (torch.sqrt(nu_hat) + eps) + weight_decay * p) * -lr_fn(state.count)
     use_new = finite | (state.notfinite_count >= max_consecutive_errors)
+    if every_k > 1:
+        # MultiSteps: the update is emit * update, its state the inner one on emit.
+        update = emit * update
+        state.acc = torch.where(use_new, (~emit) * acc, state.acc)
+        state.mini_step = torch.where(use_new, (state.mini_step + 1) % every_k, state.mini_step)
+        use_inner = use_new & emit
+    else:
+        use_inner = use_new
     p = p + torch.where(use_new, update, torch.zeros_like(update))
-    state.mu = torch.where(use_new, mu, state.mu)
-    state.nu = torch.where(use_new, nu, state.nu)
-    state.count = torch.where(use_new, count_inc, state.count)
+    state.mu = torch.where(use_inner, mu, state.mu)
+    state.nu = torch.where(use_inner, nu, state.nu)
+    state.count = torch.where(use_inner, count_inc, state.count)
     state.notfinite_count = torch.where(finite, torch.zeros_like(state.notfinite_count),
                                         state.notfinite_count + 1)
     torch._foreach_copy_(params, [v.view_as(x) for v, x in
@@ -161,7 +193,8 @@ def create_train_state(cfg: TrainConfig, device="cuda", seed: int | None = None,
     if mesh is not None:
         shard_module_(g, mesh)
     g, d = g.to(dev), d.to(dev)
-    return TrainState(0, g, d, init_adamw(g.parameters()), init_adamw(d.parameters()), mesh)
+    k = cfg.gradient_accumulation_steps
+    return TrainState(0, g, d, init_adamw(g.parameters(), k), init_adamw(d.parameters(), k), mesh)
 
 
 def _per_parameter(flat: torch.Tensor, module: torch.nn.Module) -> dict:
@@ -179,8 +212,10 @@ def _nets(state: TrainState):
 def state_payload(state: TrainState, epoch: int) -> dict:
     """The whole training state on the CPU: {"step", "epoch", "generator" and
     "discriminator": {name: tensor}, "optimizer_g" and "optimizer_d": {"count",
-    "notfinite_count", "mu" and "nu": {name: tensor}}}. Under a mesh the
-    expert-sharded tensors are gathered, so every rank must call it."""
+    "notfinite_count", "mu" and "nu": {name: tensor}}}; under gradient
+    accumulation each optimizer also holds "mini_step" and "acc": {name:
+    tensor}. Under a mesh the expert-sharded tensors are gathered, so every
+    rank must call it."""
 
     def whole(named: dict) -> dict:
         if state.mesh is not None:
@@ -193,13 +228,17 @@ def state_payload(state: TrainState, epoch: int) -> dict:
         out[opt_key] = {"count": int(opt.count), "notfinite_count": int(opt.notfinite_count),
                         "mu": whole(_per_parameter(opt.mu, module)),
                         "nu": whole(_per_parameter(opt.nu, module))}
+        if opt.acc is not None:
+            out[opt_key]["mini_step"] = int(opt.mini_step)
+            out[opt_key]["acc"] = whole(_per_parameter(opt.acc, module))
     return out
 
 
 @torch.no_grad()
 def load_state_payload(state: TrainState, payload: dict) -> TrainState:
     """Load a `state_payload` into `state` in place, each rank keeping its slice
-    of the expert-sharded tensors."""
+    of the expert-sharded tensors. An accumulating state loaded from a payload
+    without an accumulator starts its round afresh."""
     mesh = state.mesh
 
     def local(name: str, full: torch.Tensor) -> torch.Tensor:
@@ -219,10 +258,20 @@ def load_state_payload(state: TrainState, payload: dict) -> TrainState:
             p.copy_(local(name, saved[name]))
         dev = next(iter(params.values())).device
         moments = payload[opt_key]
-        opt.mu, opt.nu = (torch.cat([local(n, moments[m][n]).reshape(-1) for n in params])
-                          .to(dev, torch.float32) for m in ("mu", "nu"))
-        opt.count = torch.tensor(moments["count"], dtype=torch.int32, device=dev)
-        opt.notfinite_count = torch.tensor(moments["notfinite_count"], dtype=torch.int32,
-                                           device=dev)
+
+        def flat(m):
+            return torch.cat([local(n, moments[m][n]).reshape(-1) for n in params]).to(
+                dev, torch.float32)
+
+        def scalar(m):
+            return torch.tensor(moments[m], dtype=torch.int32, device=dev)
+
+        opt.mu, opt.nu = flat("mu"), flat("nu")
+        opt.count, opt.notfinite_count = scalar("count"), scalar("notfinite_count")
+        if opt.acc is not None:
+            if "acc" in moments:
+                opt.acc, opt.mini_step = flat("acc"), scalar("mini_step")
+            else:
+                opt.acc, opt.mini_step = torch.zeros_like(opt.acc), torch.zeros_like(opt.count)
     state.step = int(payload["step"])
     return state

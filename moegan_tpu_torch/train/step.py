@@ -1,13 +1,25 @@
 """The adversarial training step and the validation step (counterpart of
-moegan_tpu/train/step.py), default configuration.
+moegan_tpu/train/step.py), every `TrainConfig` the JAX step trains.
 
 D phase: real logits and the R1 penalty from one double-backward, the fake
 from a no-grad generator forward with its own router noise, the
 shuffled-text logits, then the D update. G phase: a fresh generator forward
-with other router noise, D's logits on it with the updated D, the
-nonsaturating loss + the weighted multi-level CLIP loss (when the step is
-given a tower pack, `clip_params`) + the last block's CV balance + the
-annealed, clamped router KL, then the G update.
+with other router noise, D's logits on it with the updated D, the GAN loss
+(`cfg.loss.gan_loss`, nonsaturating or hinge) + the weighted multi-level
+CLIP loss (when the step is given a tower pack, `clip_params`) + the
+balance (`balance_kind` cv or switch, of the last block or averaged over
+every block with `balance_all_blocks`) + the annealed, clamped router KL,
+then the G update.
+
+With `shared_fake` (JAX step.py:74-90, :169-180) the step runs one
+differentiable generator forward, under the G phase's router noise: D
+trains on its image detached, and the G loss is taken on the same output
+against the updated D, its backward through the graph kept from before the
+D update. The noise of both phases is still drawn (`draw_noise`), so the
+seeded stream does not depend on the flag. With
+`gradient_accumulation_steps` k > 1 each call is one mini-step: the
+optimizers accumulate and apply an update every k-th call
+(`train.state.clipped_adamw_update`).
 
 The step runs where the state lives: the kernels on the card, their plain
 versions on the CPU.
@@ -50,22 +62,6 @@ from moegan_tpu_torch.parallel.sharding import (
 )
 from moegan_tpu_torch.train.schedules import warmup_cosine
 from moegan_tpu_torch.train.state import TrainState, clipped_adamw_update, sharded_mask
-
-
-def check_supported(cfg: TrainConfig) -> None:
-    lc = cfg.loss
-    unsupported = [name for name, off_default in (
-        (f"gan_loss={lc.gan_loss!r}", lc.gan_loss != "nonsaturating"),
-        (f"balance_kind={lc.balance_kind!r}", lc.balance_kind != "cv"),
-        ("balance_all_blocks=True", lc.balance_all_blocks),
-        ("shared_fake=True", cfg.shared_fake),
-        (f"gradient_accumulation_steps={cfg.gradient_accumulation_steps}",
-         cfg.gradient_accumulation_steps != 1),
-    ) if off_default]
-    if unsupported:
-        raise NotImplementedError(
-            "the port's training step runs the default configuration only; not ported: "
-            + ", ".join(unsupported))
 
 
 def draw_noise(generator_module: AuroraGenerator, batch_size: int,
@@ -127,14 +123,15 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
     cfg.loss.clip_weights[r] * clip_loss_r for every RGB tap r of positive
     weight (moegan_tpu/train/step.py:135-150), each reported as `clip_loss_{r}`.
     """
-    check_supported(cfg)
     lcfg = cfg.loss
     lr_fn = functools.partial(
         warmup_cosine, lr=cfg.lr, num_epochs=cfg.num_epochs,
         steps_per_epoch=steps_per_epoch or cfg.steps_per_epoch or 1000,
         warmup_epochs=cfg.lr_warmup_epochs, min_fraction=cfg.lr_min_fraction)
     adamw = functools.partial(clipped_adamw_update, lr_fn=lr_fn, b1=cfg.beta1, b2=cfg.beta2,
-                              weight_decay=cfg.weight_decay)
+                              weight_decay=cfg.weight_decay,
+                              every_k=cfg.gradient_accumulation_steps)
+    shared = cfg.shared_fake
 
     def step(state: TrainState, batch, schedule, noise=None, generator=None, clip_params=None):
         gen, disc, mesh = state.generator, state.discriminator, state.mesh
@@ -149,27 +146,36 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
         g_params, d_params = list(gen.parameters()), list(disc.parameters())
         g_mask, d_mask = sharded_mask(gen, mesh), sharded_mask(disc, mesh)
 
+        def g_forward():
+            return gen(z, text, training=True, annealing_factor=temp, router_eps=noise["eps_g"])
+
         with maybe_mesh_context(mesh):
+            # One differentiable generator forward, shared by both phases.
+            out = g_forward() if shared else None
             # D phase: real logits and their input gradient in one graph (R1).
             real_in = real.detach().requires_grad_(True)
             real_pred = disc(real_in, text)
             (grad_real,) = torch.autograd.grad(real_pred.sum(), real_in, create_graph=True)
             r1 = (lcfg.r1_gamma / 2.0) * grad_real.float().square().sum(dim=(1, 2, 3)).mean()
-            with torch.no_grad():
-                fake = gen(z, text, training=True, annealing_factor=temp,
-                           router_eps=noise["eps_d"]).image
+            if shared:
+                fake = out.image.detach()
+            else:
+                with torch.no_grad():
+                    fake = gen(z, text, training=True, annealing_factor=temp,
+                               router_eps=noise["eps_d"]).image
             fake_pred = disc(fake, text)
             mism_pred = disc(real, mism_text)
-            d_gan = discriminator_loss(real_pred, fake_pred, mism_pred)
+            d_gan = discriminator_loss(real_pred, fake_pred, mism_pred, lcfg.gan_loss)
             d_total = d_gan + r1
             d_grads = data_mean(torch.autograd.grad(d_total, d_params), mesh)
             adamw(d_params, d_grads, state.d_opt, clip=cfg.grad_clip_d, mesh=mesh,
                   sharded=d_mask)
 
             # G phase, against the updated D.
-            out = gen(z, text, training=True, annealing_factor=temp, router_eps=noise["eps_g"])
+            if not shared:
+                out = g_forward()
             kl = torch.clamp(out.kl, max=lcfg.kl_clamp)
-            g_gan = generator_loss(disc(out.image, text))
+            g_gan = generator_loss(disc(out.image, text), lcfg.gan_loss)
             clip_metrics = {}
             g_clip = torch.zeros((), device=dev)
             if clip_params is not None:
@@ -180,7 +186,9 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
                         stop_gradient=lcfg.clip_stop_gradient).items():
                     clip_metrics[f"clip_loss_{r}"] = cl
                     g_clip = g_clip + lcfg.clip_weights[r] * cl
-            balance = moe_balance_loss(out.routing, lcfg.balance_weight, mesh)
+            balance = moe_balance_loss(out.routing, lcfg.balance_weight,
+                                       all_blocks=lcfg.balance_all_blocks,
+                                       kind=lcfg.balance_kind, mesh=mesh)
             g_total = g_gan + g_clip + balance + eff_kl_w * kl
             # norm2 and the cross-attention's q/k weights feed nothing (one text
             # token): their gradients are zero, as in the JAX package.
@@ -212,8 +220,8 @@ def make_eval_step(cfg: TrainConfig):
     the losses are averaged over the data group. With a tower pack
     `clip_params`, `val_clip_loss_{r}` for every RGB tap r that cfg.loss.clip_weights
     names, and `val_clip_loss`, the top resolution's (the HPO objective).
+    The GAN losses are `cfg.loss.gan_loss`'s.
     """
-    check_supported(cfg)
     lcfg = cfg.loss
 
     @torch.no_grad()
@@ -235,9 +243,10 @@ def make_eval_step(cfg: TrainConfig):
             fake_pred = disc(out.image, text)
             mism_pred = disc(real, mism_text)
         metrics = {
-            "val_d_loss": discriminator_loss(real_pred, fake_pred, mism_pred),
+            "val_d_loss": discriminator_loss(real_pred, fake_pred, mism_pred, lcfg.gan_loss),
             # step.py:241-243: the val G loss includes the annealed, clamped KL.
-            "val_g_loss": generator_loss(fake_pred) + schedule["effective_kl_weight"]
+            "val_g_loss": generator_loss(fake_pred, lcfg.gan_loss)
+            + schedule["effective_kl_weight"]
             * torch.clamp(out.kl, max=lcfg.kl_clamp),
         }
         if clip_params is not None:

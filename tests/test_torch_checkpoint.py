@@ -134,3 +134,25 @@ def test_sharded_resume_equals_uninterrupted(tmp_path):
     assert dh.full_state(single).keys() == ranks[0]["whole"]["params"].keys()
     _assert_runs_equal({"params": dh.full_state(single), "moments": dh.adam_moments(single),
                         "step": single.step}, ranks[0]["whole"])
+
+
+def test_resume_mid_accumulation_equals_uninterrupted(tmp_path):
+    """gradient_accumulation_steps=2 at 3 steps an epoch: the first run stops after
+    epoch 1, in the middle of an accumulation round (mini-step 1), and its
+    checkpoint carries each optimizer's accumulator and mini-step, so the
+    resumed run equals the uninterrupted one bit for bit."""
+    cfg = CFG.replace(gradient_accumulation_steps=2)
+    out = dh.resume_loop(0, 1, cfg.to_dict(), 12, 4, str(tmp_path / "a"), str(tmp_path / "b"),
+                         distributed=False, first_epochs=1)
+    assert out["first"]["step"] == 3 and out["whole"]["step"] == 9
+    payload = torch.load(str(tmp_path / "a" / "checkpoint_3.pt"), weights_only=True)
+    assert payload["optimizer_g"]["mini_step"] == payload["optimizer_d"]["mini_step"] == 1
+    assert payload["optimizer_g"]["count"] == 1
+    first = out["first"]["moments"]
+    assert first["g"]["mini_step"] == 1 and any(v.any() for v in first["g"]["acc"].values())
+    _assert_runs_equal(out["resumed"], out["whole"])
+    for net in ("g", "d"):
+        got, want = out["resumed"]["moments"][net], out["whole"]["moments"][net]
+        assert got["mini_step"] == want["mini_step"] == 1 and want["count"] == 4
+        for k, v in want["acc"].items():
+            np.testing.assert_array_equal(got["acc"][k], v, err_msg=f"acc {k}")

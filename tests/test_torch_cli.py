@@ -111,13 +111,21 @@ def test_cli_writes_what_the_jax_cli_writes(cli_run):
 
 
 def test_cli_refuses_before_loading(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="gradient_accumulation_steps=2"):
-        train_model.main(["--synthetic", "--device", "cpu", "--gradient_accumulation_steps",
-                          "2", "--save_dir", str(tmp_path / "a")])
+    """`--gradient_accumulation_steps 2` trains (one update every two steps) and
+    writes the run's files; without a card the CLI raises before it loads anything."""
+    run = tmp_path / "a"
+    state = train_model.main(["--synthetic", "--tiny", "--device", "cpu", "--max_resolution",
+                              "16", "--epochs", "1", "--no_clip_loss", "--log_interval", "1",
+                              "--gradient_accumulation_steps", "2", "--save_dir", str(run)])
+    assert state.step == 2 and int(state.g_opt.count) == int(state.d_opt.count) == 1
+    assert int(state.g_opt.mini_step) == 0
+    assert sorted(os.listdir(run)) == ["aurora_model_final.msgpack", "checkpoint_2.pt",
+                                       "generator_config.json", "metrics.jsonl",
+                                       "model_math_version.txt"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_model.main(["--synthetic", "--save_dir", str(tmp_path / "b")])
-    assert not os.listdir(tmp_path)
+    assert not (tmp_path / "b").exists()
 
 
 @pytest.mark.parametrize("augmented", [False, True], ids=["plain", "augmented"])

@@ -102,3 +102,26 @@ def test_sampler_call_shapes_and_range():
     assert emb.shape == (1, 512)
     torch.testing.assert_close(s("a red bird", num_samples=3, seed=1),
                                s(emb.numpy(), num_samples=3, seed=1), rtol=0, atol=0)
+
+
+def test_one_expert_generator_matches_jax():
+    """BASELINE config 1, the dense one-expert generator: every routing
+    probability is 1 (eval and training), and the image matches JAX's."""
+    cfg = GeneratorConfig(compute_dtype="float32", num_experts=1, **TINY_KW)
+    g = AuroraGenerator(cfg, gen=torch.Generator().manual_seed(4)).eval()
+    jg = JaxGenerator(JaxGeneratorConfig(use_pallas=True, compute_dtype="float32",
+                                         num_experts=1, **TINY_KW))
+    z, txt, psi = _inputs()
+    want = _jax_apply(jg, jax_variables(g), z, txt, psi)
+    with torch.inference_mode():
+        got = g(t(z), t(txt), t(psi))
+        eps = {r: tuple(torch.randn(mu.shape, generator=torch.Generator().manual_seed(r))
+                        for mu in getattr(g, f"gen_block_{r}").attn_block.moe.router
+                        .mean_weights()) for r in cfg.resolutions()}
+        trained = g(t(z), t(txt), training=True, annealing_factor=2.0, router_eps=eps)
+    for probs in (*got.routing, *want.routing, *trained.routing):
+        assert probs.shape[-1] == 1 and bool((np.asarray(probs) == 1.0).all())
+    # float32 in other summation orders; images reach |x| ~ 30 before clipping
+    img, ref = got.image.numpy(), np.asarray(want.image)
+    np.testing.assert_allclose(img, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+    assert np.isfinite(trained.image.numpy()).all()

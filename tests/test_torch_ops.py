@@ -120,6 +120,32 @@ def test_moe_plans_fit_every_shape(phase, B, E):
             assert ends[-1] == T and (bwd.t_ranges - 1) * bwd.t_range < T, (phase, res, bwd)
 
 
+def test_plans_fit_the_flagship_and_one_expert_shapes():
+    # tpu_flagship_config's rungs at batch 64 (C 512/512/256/128/64, its
+    # attention at head_dim 32/16/32), and the dense one-expert generator's
+    # MoE (E = 1) at the default widths, on the H100's 132 SMs.
+    from moegan_tpu_torch.config import GeneratorConfig, tpu_flagship_config
+
+    sms, B = 132, 64
+    gcfg = tpu_flagship_config().generator
+    attn = {r: (gcfg.heads_for(c), c // gcfg.heads_for(c)) for r, c in gcfg.channels.items()
+            if r >= 16}
+    assert attn == {16: (8, 32), 32: (8, 16), 64: (2, 32)}
+    for r, (H, D) in attn.items():
+        assert tfa.flash_plan(B, H, r * r, D, sms) == 128  # D <= 32, the grid fills the card
+    shapes = [(r, C, 4) for r, C in gcfg.channels.items()]
+    shapes += [(r, C, 1) for r, C in GeneratorConfig().channels.items()]
+    for res, C, E in shapes:
+        T, F = B * res * res, 4 * C
+        fwd, bwd = tfm.moe_plan(T, C, F, E, sms), tfm.moe_bwd_plan(T, C, F, E, sms)
+        tiles, chunks = -(-T // fwd.block_t), E * -(-F // 64)
+        for plan in (fwd, bwd):
+            assert 1 <= plan.splits <= chunks and tiles * plan.splits >= min(sms, tiles * chunks)
+        assert bwd.scratch == (C > 64) and bwd.t_range % 32 == 0
+        ends = [min(T, (s + 1) * bwd.t_range) for s in range(bwd.t_ranges)]
+        assert ends[-1] == T and (bwd.t_ranges - 1) * bwd.t_range < T, (res, C, E, bwd)
+
+
 @pytest.mark.parametrize("hard", [True, False])
 @pytest.mark.parametrize("kernel", ["v1", "v2"])
 def test_moe_plain_matches_pallas_kernel(kernel, hard):

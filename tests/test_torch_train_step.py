@@ -286,12 +286,22 @@ def test_clip_matches_optax_and_schedule_matches_optax():
 
 
 def test_entry_points_refuse_what_is_not_ported(monkeypatch):
+    """Every option the JAX step trains is accepted (tests/test_torch_train_options.py
+    holds each against JAX); what is refused is a card that is not there."""
+    from moegan_tpu_torch.train import step as step_module
+    from moegan_tpu_torch.train.step import make_eval_step
+
     cfg = TrainConfig.from_dict(JAX_CFG.to_dict())
-    for bad in (dict(shared_fake=True), dict(gradient_accumulation_steps=2),
+    assert not hasattr(step_module, "check_supported")
+    state = create_train_state(cfg, device="cpu", seed=1)
+    batch = {"image": t(np.tanh(randn(4, B, 16, 16, 3))), "text": t(randn(5, B, 512))}
+    for opt in (dict(shared_fake=True), dict(gradient_accumulation_steps=2),
                 dict(loss=cfg.loss.replace(gan_loss="hinge")),
-                dict(loss=cfg.loss.replace(balance_all_blocks=True))):
-        with pytest.raises(NotImplementedError):
-            make_train_step(cfg.replace(**bad))
+                dict(loss=cfg.loss.replace(balance_all_blocks=True, balance_kind="switch"))):
+        make_train_step(cfg.replace(**opt))
+        val = make_eval_step(cfg.replace(**opt))(state, batch, SCHED,
+                                                  generator=torch.Generator().manual_seed(0))
+        assert all(bool(torch.isfinite(v)) for v in val.values())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_train_state(cfg)

@@ -83,7 +83,8 @@ def _child(fn_name, rank, world_size, port, tmp, kwargs):
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
+    """A copy (not a view of a parameter that a later step updates in place)."""
+    return t.detach().float().cpu().numpy().copy()
 
 
 # --- rank functions ----------------------------------------------------------------------
@@ -173,23 +174,36 @@ def first_moments(state) -> dict:
     return out
 
 
-def train_steps(rank, world_size, cfg_dict, seed, batches, noises, schedule):
+def train_steps(rank, world_size, cfg_dict, seed, batches, noises, schedule, moments_after=1,
+                router_scale=None):
     """`setup_distributed_training` on the CPU, then one step per global batch with
     the given noise. Returns the metrics of each step, Adam's first moments after
-    the first step, and the whole parameters at the end."""
+    step `moments_after` (under gradient accumulation the first step that
+    applies an update), the whole parameters after each step, and the
+    optimizer counts at the end. With `router_scale` every router's
+    combined_mu is scaled by it first (as `tests.torch_helpers.decisive_router`)."""
     from moegan_tpu_torch.config import TrainConfig
     from moegan_tpu_torch.parallel.api import setup_distributed_training
 
     cfg = TrainConfig.from_dict(cfg_dict).replace(seed=seed)
     mesh, state, step = setup_distributed_training(cfg, device="cpu")
-    metrics, moments = [], None
-    for batch, noise in zip(batches, noises):
+    if router_scale is not None:
+        with torch.no_grad():
+            for name, p in state.generator.named_parameters():
+                if name.endswith("combined_mu"):
+                    p.mul_(router_scale)
+    metrics, moments, params = [], None, []
+    for i, (batch, noise) in enumerate(zip(batches, noises)):
         state, m = step(state, batch, schedule, noise=noise)
         metrics.append({k: _np(v) for k, v in m.items()})
-        if moments is None:
+        if i + 1 == moments_after:
             moments = first_moments(state)
-    return dict(metrics=metrics, moments=moments, params=full_state(state),
-                mesh=(mesh.shape, mesh.data_index, mesh.expert_index))
+        params.append(full_state(state))
+    counts = [[int(o.count), int(o.notfinite_count)] + ([] if o.mini_step is None
+                                                       else [int(o.mini_step)])
+              for o in (state.g_opt, state.d_opt)]
+    return dict(metrics=metrics, moments=moments, params=params[-1], params_each=params,
+                counts=counts, mesh=(mesh.shape, mesh.data_index, mesh.expert_index))
 
 
 class ListLogger:
@@ -257,14 +271,20 @@ def adam_moments(state) -> dict:
             out[key][m] = {k: _np(v) for k, v in
                            (gather_full(named, state.mesh) if state.mesh else named).items()}
         out[key]["count"] = int(opt.count)
+        if opt.acc is not None:
+            named = _named_views(opt.acc, module)
+            out[key]["acc"] = {k: _np(v) for k, v in
+                               (gather_full(named, state.mesh) if state.mesh else named).items()}
+            out[key]["mini_step"] = int(opt.mini_step)
     return out
 
 
 def resume_loop(rank, world_size, cfg_dict, n_train, n_val, interrupted_dir, whole_dir,
-                distributed=True):
-    """`train_aurora_gan` for 2 epochs saving to `interrupted_dir`, then resumed from
-    there for a third, beside an uninterrupted 3-epoch run saving to `whole_dir`.
-    Returns the whole parameters, Adam's moments and the step of both runs."""
+                distributed=True, first_epochs=2):
+    """`train_aurora_gan` for `first_epochs` epochs saving to `interrupted_dir`, then
+    resumed from there to 3 epochs, beside an uninterrupted 3-epoch run saving to
+    `whole_dir`. Returns the whole parameters, Adam's moments (and accumulators)
+    and the step of both runs."""
     from moegan_tpu_torch.config import TrainConfig
     from moegan_tpu_torch.data.datasets import synthetic_dataset
     from moegan_tpu_torch.train.loop import train_aurora_gan
@@ -274,7 +294,7 @@ def resume_loop(rank, world_size, cfg_dict, n_train, n_val, interrupted_dir, who
     train = synthetic_dataset(n_train, res, seed=1)
     val = synthetic_dataset(n_val, res, seed=2)
     out = {}
-    runs = (("whole", 3, whole_dir, False), ("first", 2, interrupted_dir, False),
+    runs = (("whole", 3, whole_dir, False), ("first", first_epochs, interrupted_dir, False),
             ("resumed", 3, interrupted_dir, True))
     for name, epochs, save_dir, resume in runs:
         log = ListLogger()
@@ -284,3 +304,30 @@ def resume_loop(rank, world_size, cfg_dict, n_train, n_val, interrupted_dir, who
         out[name] = dict(params=full_state(state), moments=adam_moments(state), step=state.step,
                          lines=log.lines)
     return out
+
+
+def progressive_run(cfg_dict, stages, distributed):
+    """`train_progressive` on synthetic sets on the CPU. Returns ([(resolution,
+    state), ...], logger)."""
+    from moegan_tpu_torch.config import TrainConfig
+    from moegan_tpu_torch.data.datasets import synthetic_dataset
+    from moegan_tpu_torch.train.progressive import train_progressive
+
+    cfg = TrainConfig.from_dict(cfg_dict)
+    res = max(r for r, _ in stages)
+    log = ListLogger()
+    _, stage_states = train_progressive(
+        synthetic_dataset(8, res, seed=1), synthetic_dataset(4, res, seed=2), cfg=cfg,
+        stages=stages, logger=log, device="cpu", distributed=distributed)
+    return stage_states, log
+
+
+def progressive_ranks(rank, world_size, cfg_dict, stages):
+    """`progressive_run` over the process group: each rank grafts its own slices.
+    Returns each stage's whole parameters, the log lines and the last stage's
+    generator shapes on this rank."""
+    stage_states, log = progressive_run(cfg_dict, stages, True)
+    last = stage_states[-1][1].generator.state_dict()
+    return dict(stages=[full_state(s) for _, s in stage_states], lines=log.lines,
+                steps=[s.step for _, s in stage_states],
+                shapes={k: tuple(v.shape) for k, v in last.items()})
