@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's 64x64 serving path, training step, distributed
-training, opt-in kernel configuration, training CLI and training
+training, opt-in kernel configuration, training CLI, training
 configurations (the flagship preset, the step's options, progressive
-training, one expert) on one NVIDIA GPU and check them.
+training, one expert) and generation and evaluation (FID, CLIPScore,
+/image-metrics, the evaluate and generate_images CLIs) on one NVIDIA GPU
+and check them.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and nvcc (it builds the port's kernels from `moegan_tpu_torch/ops/csrc`).
@@ -110,6 +112,25 @@ failure (non-zero exit, no result line):
    9's two ranks under `shared_fake`, 2 mini-steps an update and the switch
    balance over every block, 2 mini-steps against the single-card steps to
    phase 9's limits.
+13. generation and evaluation, at the default 64x64 configuration with the
+   random-init InceptionV3 and CLIP towers: (a) the flash forward (no lse)
+   and the fused MoE forward (hard and soft, timed hard) against their plain
+   versions at the evaluator's batch 64, with times and bounds; (b)
+   InceptionV3 features (bf16, cuDNN) of 8 generated images against the
+   CPU's float32, each image's cosine >= FEATURE_COSINE, both variants, and
+   64 images' features timed; (c) `cli.evaluate.main(["--synthetic",
+   "--batch_size", "64", "--save_reference_stats", P, "--device", "cuda",
+   "--model_path", M])` once per feature source (128 samples, 2 generator
+   calls): fid and clip_score finite, expert_utilization summing to 1, the
+   stats file, exactly 3 flash and 5 fused MoE forwards a generator call and
+   nothing else; the Inception run's FID recomputed from the CPU's float32
+   features of the same images (see FID_REL_TOL); wall time split into
+   generator, Inception, CLIP, sqrtm and the rest; (d) the model directory
+   served from an empty working directory: /image-metrics with a prompt and
+   with an embedding, without reference_stats.npz (the μ=0, Σ=I fallback)
+   and then with (c)'s file, fid_score finite, latency reported; a lone
+   request to the `batching=False` handler; (e) `cli.generate_images` writes
+   a 2x2 grid (128x128x3) and prints the expert statistics.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -120,6 +141,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import functools
+import io
 import itertools
 import json
 import math
@@ -260,15 +282,16 @@ def exp_floor_ms(exps: float) -> float:
 # --- phase 2: kernels against their plain versions -------------------------------------
 
 
-def flash_phase(dev, tfa):
-    """The three self-attention shapes (res 16/32/64) at batch N."""
+def flash_phase(dev, tfa, batch=N, tag="", lse_tol=1e-3):
+    """The three self-attention shapes (res 16/32/64) at `batch` (`tag` prefixes
+    the per-shape lines; `lse_tol` is the lse limit, see flash_bwd_phase)."""
     import torch.nn.functional as F
 
     rows = []
     g = torch.Generator(device=dev).manual_seed(SEED)
     for res, H, D in ((16, 8, 16), (32, 2, 32), (64, 1, 32)):
         T = res * res
-        y = torch.randn((N, T, 3 * H * D), generator=g, device=dev).to(torch.bfloat16)
+        y = torch.randn((batch, T, 3 * H * D), generator=g, device=dev).to(torch.bfloat16)
         q, k, v = (y[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D)) for i in range(3))
         o, lse = tfa.flash_attention(q, k, v, with_lse=True)
         o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, with_lse=True)
@@ -282,32 +305,38 @@ def flash_phase(dev, tfa):
         # of o, plus p rounded to bf16 against the running max (kernel) or the
         # row max (plain).
         tol = 4 * 2.0 ** -8 * o_max
-        check(err <= tol, f"flash res {res}: max |o - plain| {err} > {tol} (max |o| {o_max})")
+        check(err <= tol, f"flash {tag}res {res}: max |o - plain| {err} > {tol} (max |o| "
+                          f"{o_max})")
         # lse in base-2 units, fp32. l sums p rounded to bf16 against
         # different maxima; those roundings (each <= 2^-9 relative) mostly
         # cancel over T terms.
-        check(lse_err <= 1e-3, f"flash res {res}: max |lse - plain| {lse_err} > 1e-3")
+        check(lse_err <= lse_tol, f"flash {tag}res {res}: max |lse - plain| {lse_err} > "
+                                  f"{lse_tol}")
         o2 = tfa.flash_attention(q, k, v)
-        check(torch.equal(o, o2), f"flash res {res}: the no-lse call differs from the lse call")
+        check(torch.equal(o, o2), f"flash {tag}res {res}: the no-lse call differs from the lse "
+                                  f"call")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms = time_ms(lambda: tfa.flash_attention(q, k, v), 20)
         plain_ms = time_ms(lambda: tfa.flash_attention_reference(q, k, v), 5)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
         dev_ms = graph_ms(lambda: tfa.flash_attention(q, k, v), 20)
         lib_dev_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
-        flops = 4.0 * N * H * T * T * D
-        nbytes = 4.0 * N * T * H * D * 2  # q, k, v read once, o written once, bf16
+        flops = 4.0 * batch * H * T * T * D
+        nbytes = 4.0 * batch * T * H * D * 2  # q, k, v read once, o written once, bf16
         b_ms, b_by = bound_ms(flops, nbytes)
-        exps = float(N * H * T * T)
-        rows.append(dict(res=res, B=N, T=T, H=H, D=D,
-                         block_q=tfa.flash_plan(N, H, T, D, torch.cuda.get_device_properties(0)
-                                                 .multi_processor_count),
+        exps = float(batch * H * T * T)
+        rows.append(dict(res=res, B=batch, T=T, H=H, D=D,
+                         block_q=tfa.flash_plan(batch, H, T, D,
+                                                torch.cuda.get_device_properties(0)
+                                                .multi_processor_count),
                          max_abs_err=err, max_abs_ref=o_max, tol=tol, lse_max_abs_err=lse_err,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, device_ms=dev_ms,
                          library_device_ms=lib_dev_ms, flops=flops, bytes=nbytes,
                          exps=exps, exp_floor_ms=exp_floor_ms(exps), bound_ms=b_ms,
                          bound_by=b_by))
-        print("flash_attention_fwd " + json.dumps(rows[-1]), flush=True)
+        print(f"flash_attention_fwd {tag}" + json.dumps(rows[-1]), flush=True)
+        del y, q, k, v, o, lse, o_ref, lse_ref, o2, qt, kt, vt
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -367,14 +396,15 @@ def moe_compare(tfm, args, hard, label):
     return err, p_err, excluded, p, scale
 
 
-def moe_phase(dev, tfm):
-    """The five MoE blocks at batch N, hard (served) and soft, plus a batch with forced ties."""
+def moe_phase(dev, tfm, batch=N, tag=""):
+    """The five MoE blocks at `batch`, hard (served) and soft, timed hard (`tag`
+    prefixes the per-shape lines)."""
     rows = []
     for res, C in ((4, 512), (8, 256), (16, 128), (32, 64), (64, 32)):
-        T = N * res * res
+        T = batch * res * res
         args = moe_args(dev, C, T, seed=res)
-        err_h, perr_h, excl, p, scale = moe_compare(tfm, args, True, f"res {res} hard")
-        err_s, perr_s, _, _, _ = moe_compare(tfm, args, False, f"res {res} soft")
+        err_h, perr_h, excl, p, scale = moe_compare(tfm, args, True, f"{tag}res {res} hard")
+        err_s, perr_s, _, _, _ = moe_compare(tfm, args, False, f"{tag}res {res} soft")
         ms = time_ms(lambda: tfm.fused_moe_ffn(*args, hard=True), 10)
         dev_ms = graph_ms(lambda: tfm.fused_moe_ffn(*args, hard=True), 10)
         plain_ms = time_ms(lambda: tfm.moe_ffn_reference(*args, hard=True), 3)
@@ -398,13 +428,17 @@ def moe_phase(dev, tfm):
                          # GELUs at most, 2 SFU operations each
                          gelu_floor_ms=exp_floor_ms(2.0 * selections * F_),
                          plan=list(tfm.kernel_plan(T, C, F_, E, dev))))
-        print("fused_moe_fwd " + json.dumps(rows[-1]), flush=True)
-    args = moe_args(dev, 256, 1000, ties=37, seed=99)  # ragged T, forced ties
+        print(f"fused_moe_fwd {tag}" + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def moe_ties_phase(dev, tfm):
+    """A ragged batch of 1000 tokens whose first 37 tie exactly: split evenly."""
+    args = moe_args(dev, 256, 1000, ties=37, seed=99)
     err, _, _, p, _ = moe_compare(tfm, args, True, "forced ties")
     check(torch.equal(p[:37], torch.tensor([[0.5, 0.5, 0.0, 0.0]], device=dev).expand(37, 4)),
           "moe forced ties: tied rows are not split evenly")
     print(f"fused_moe_fwd forced-ties T=1000 C=256 max_abs_err={err}", flush=True)
-    return rows
 
 
 # --- phase 3: the backward kernels against their plain versions ------------------------
@@ -658,12 +692,13 @@ def http_json(url, payload=None):
         return json.loads(r.read())
 
 
-def request_once(base, text, seed, out, i):
-    """One /generate of 4 samples (`text` a prompt or an embedding), polled to its end."""
+def request_once(base, text, seed, out, i, path="/generate"):
+    """One POST `path` (/generate or /image-metrics) of 4 samples (`text` a prompt
+    or an embedding), polled to its end."""
     t0 = time.perf_counter()
     text = text if isinstance(text, str) else text.tolist()
-    rid = http_json(f"{base}/generate", {"text": text, "num_samples": 4,
-                                         "truncation_psi": 0.7, "seed": seed})["request_id"]
+    rid = http_json(f"{base}{path}", {"text": text, "num_samples": 4,
+                                      "truncation_psi": 0.7, "seed": seed})["request_id"]
     while True:
         job = http_json(f"{base}/poll?request_id={rid}")
         if job["status"] in ("COMPLETED", "FAILED"):
@@ -2236,6 +2271,334 @@ def flagship_extras(p12) -> dict:
     }
 
 
+# --- phase 13: generation and evaluation ------------------------------------------------
+
+EVAL_BATCH = 64  # cli.evaluate's default batch
+# One eval generator call (hard routing): a flash forward per attention block
+# at T >= 256 and a fused MoE forward per block, nothing else.
+EVAL_CALL_LAUNCHES = {**dict.fromkeys(EXPECTED_STEP_LAUNCHES, 0), "flash_attention_fwd": 3,
+                      "fused_moe_fwd": 5}
+# Inception on the card (bf16 products of 94 convs) against the CPU's float32:
+# each rounding is 2^-9 relative, a few dozen in sequence, so each image's
+# 2048 features keep their direction to well within a percent.
+FEATURE_COSINE = 0.995
+# The FID of the card's features against the FID of the CPU's float32
+# features of the same images. FID is a difference of traces several times
+# its size, so it moves by a multiple of the features' relative error (on the
+# CPU, bf16 Inception against float32 moved the FID of two 64-image
+# synthetic sets by 0.12 %, features 0.39 % apart in RMS). A wrong layout or
+# pool moves it by tens of percent.
+FID_REL_TOL = 0.05
+
+
+@contextlib.contextmanager
+def timed_calls(targets, keep=()):
+    """Time every call of each `targets[key] = (owner, name)` on the host, the
+    card synchronised before and after. Yields ({key: [seconds, calls]},
+    {key in `keep`: the list of its calls' results})."""
+    spent = {key: [0.0, 0] for key in targets}
+    kept = {key: [] for key in keep}
+    saved = []
+    for key, (owner, name) in targets.items():
+        orig = getattr(owner, name)
+        saved.append((owner, name, orig))
+
+        def timed(*a, _orig=orig, _key=key, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _orig(*a, **kw)
+            torch.cuda.synchronize()
+            spent[_key][0] += time.perf_counter() - t0
+            spent[_key][1] += 1
+            if _key in kept:
+                kept[_key].append(out)
+            return out
+
+        setattr(owner, name, timed)
+    try:
+        yield spent, kept
+    finally:
+        for owner, name, orig in saved:
+            setattr(owner, name, orig)
+
+
+def cpu_features(images, variant="torchvision"):
+    """Float32 InceptionV3 features on the CPU, 32 images at a time."""
+    from moegan_tpu_torch.models.inception import inception_model
+
+    model = inception_model(device="cpu", compute_dtype="float32")
+    with torch.inference_mode():
+        return torch.cat([model.features(images[i:i + 32].float().cpu(), variant)
+                          for i in range(0, len(images), 32)])
+
+
+def features_phase(cfg, state_dict, smi):
+    """(b) Inception features of 8 generated images on the card (bf16) against the
+    CPU's float32 (both variants), each image's cosine; 64 images' features timed."""
+    import torch.nn.functional as F
+
+    from moegan_tpu_torch.infer.sample import Sampler
+    from moegan_tpu_torch.models.inception import FEATURE_DIM, inception_model
+
+    rng = np.random.default_rng(SEED + 30)
+    z = rng.standard_normal((EVAL_BATCH, 512)).astype(np.float32)
+    txt = rng.standard_normal((EVAL_BATCH, 512)).astype(np.float32)
+    images, _ = Sampler(cfg, state_dict, device="cuda").sample_raw(
+        z, txt, np.ones(EVAL_BATCH, np.float32))
+    card = inception_model(device="cuda")
+    row = {"images": 8, "card": smi}
+    for variant in ("torchvision", "pytorch_fid"):
+        with torch.inference_mode():
+            got = card.features(images[:8], variant).float().cpu()
+        want = cpu_features(images[:8], variant)
+        check(tuple(got.shape) == (8, FEATURE_DIM) and bool(torch.isfinite(got).all()),
+              f"inception {variant}: features {tuple(got.shape)}")
+        cos = F.cosine_similarity(got, want, dim=-1)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        check(cos.min().item() >= FEATURE_COSINE,
+              f"inception {variant}: feature cosine {cos.tolist()} < {FEATURE_COSINE}")
+        row[variant] = {"cosine_min": cos.min().item(), "cosine": cos.tolist(),
+                        "max_rel_diff": rel}
+    with torch.inference_mode():
+        ms = time_ms(lambda: card.features(images), 5)
+    row.update(batch=EVAL_BATCH, ms=ms, images_per_s=EVAL_BATCH / ms * 1e3)
+    print(f"inception features, batch {EVAL_BATCH} of 64x64 images: {ms:.2f} ms "
+          f"({row['images_per_s']:.0f} images/s) on {smi}", flush=True)
+    print("inception " + json.dumps(row), flush=True)
+    return row
+
+
+def evaluate_cli_phase(model_path, root, smi):
+    """(c) `cli.evaluate.main` at the default 64x64 configuration, batch 64, once
+    per feature source: the result, the launches of each generator call, the
+    FID recomputed from the CPU's float32 features (Inception), the wall time
+    split into generator, Inception, CLIP, sqrtm and the rest."""
+    from moegan_tpu_torch.cli import evaluate as cli_evaluate
+    from moegan_tpu_torch.data.datasets import synthetic_dataset
+    from moegan_tpu_torch.infer import fid
+    from moegan_tpu_torch.models.clip import CLIP
+    from moegan_tpu_torch.models.generator import AuroraGenerator
+    from moegan_tpu_torch.models.inception import InceptionV3
+
+    targets = {"generator": (AuroraGenerator, "forward"), "inception": (InceptionV3, "features"),
+               "clip": (CLIP, "image_features"), "sqrtm": (fid, "_psd_sqrtm")}
+    rows, launches_by_source = {}, {}
+    for source, dim in (("inception", 2048), ("clip", 512)):
+        stats_path = os.path.join(root, f"reference_stats_{source}.npz")
+        argv = ["--synthetic", "--batch_size", str(EVAL_BATCH), "--save_reference_stats",
+                stats_path, "--device", "cuda", "--model_path", model_path,
+                "--feature_source", source]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with timed_calls(targets, keep=("generator",)) as (spent, kept):
+            with contextlib.redirect_stdout(buf):
+                res = cli_evaluate.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        launches_by_source[source] = launches
+        lines = buf.getvalue().strip().splitlines()
+        calls = spent["generator"][1]
+        check(calls == 2 and res["num_samples"] == 2 * EVAL_BATCH,
+              f"evaluate {source}: {calls} generator calls, {res['num_samples']} samples")
+        want = {k: v * calls for k, v in EVAL_CALL_LAUNCHES.items()}
+        check(launches == want, f"evaluate {source}: launches {launches}, want {want}")
+        check(res["fid_feature_source"] == source and np.isfinite(res["fid"])
+              and res["clip_score"] is not None and np.isfinite(res["clip_score"]),
+              f"evaluate {source}: {res}")
+        util = res["expert_utilization"]
+        check(len(util) == 4 and abs(sum(util) - 1.0) < 1e-4, f"evaluate {source}: {util}")
+        check(lines[0].startswith("[METRIC] fid: ") and lines[1].startswith("[METRIC] clip_score: ")
+              and lines[2] == f"wrote {stats_path}" and json.loads(lines[-1])["fid"] == res["fid"],
+              f"evaluate {source}: output {lines}")
+        with np.load(stats_path) as data:
+            check(data["mu"].shape == (dim,) and data["sigma"].shape == (dim, dim)
+                  and bool(np.isfinite(data["sigma"]).all()), f"evaluate {source}: stats file")
+        seconds = {k: v[0] for k, v in spent.items()}
+        seconds["rest"] = wall - sum(seconds.values())
+        row = {"source": source, "fid": res["fid"], "clip_score": res["clip_score"],
+               "expert_utilization": util, "num_samples": res["num_samples"], "wall_s": wall,
+               "seconds": seconds, "calls": {k: v[1] for k, v in spent.items()},
+               "launches": launches, "card": smi}
+        if source == "inception":
+            fake = torch.cat([out.image.clamp(-1.0, 1.0).float().cpu()
+                              for out in kept["generator"]])
+            real = synthetic_dataset(max(2 * EVAL_BATCH, 64), 64).images[:len(fake)]
+            t1 = time.perf_counter()
+            f_fake = cpu_features(fake).double().numpy()
+            f_real = cpu_features(torch.from_numpy(real)).double().numpy()
+            fid_cpu = fid.frechet_distance(*fid.gaussian_stats(f_fake),
+                                           *fid.gaussian_stats(f_real))
+            rel = abs(res["fid"] - fid_cpu) / abs(fid_cpu)
+            check(rel <= FID_REL_TOL, f"evaluate: FID {res['fid']} against the CPU's float32 "
+                                      f"{fid_cpu}: {rel} > {FID_REL_TOL}")
+            row.update(fid_cpu_float32=fid_cpu, fid_rel_diff=rel,
+                       cpu_recompute_s=time.perf_counter() - t1,
+                       images_per_s=res["num_samples"] / wall)
+        rows[source] = row
+        print(f"evaluate {source}: fid {res['fid']:.4f} clip_score {res['clip_score']:.4f} "
+              f"in {wall:.1f} s: " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()),
+              flush=True)
+        print("evaluate " + json.dumps(row), flush=True)
+        del kept
+        torch.cuda.empty_cache()
+    return rows, launches_by_source["inception"]
+
+
+def image_metrics_phase(model_dir, stats_path, root, smi):
+    """(d) the model directory served from a working directory of its own:
+    /image-metrics with a prompt and with an embedding, first without
+    reference_stats.npz (μ=0, Σ=I), then with (c)'s file; a lone request to
+    the unbatched handler."""
+    from moegan_tpu_torch.infer.png import decode_png
+    from moegan_tpu_torch.infer.serving import InferenceHandler, make_server
+
+    work = os.path.join(root, "serve_cwd")
+    os.makedirs(work)
+    os.chdir(work)  # the handler reads reference_stats.npz from its working directory
+    emb = np.random.default_rng(SEED + 31).standard_normal(512).astype(np.float32)
+    with np.load(stats_path) as data:
+        ref_mu = data["mu"]
+    rows, towers = [], None
+    for stage in ("fallback", "reference_stats"):
+        if stage == "reference_stats":
+            shutil.copy(stats_path, "reference_stats.npz")
+        handler = InferenceHandler.from_model_dir(model_dir, clip_params=towers, device="cuda")
+        towers = handler.sampler.clip_params
+        mu = handler.fid.ref_mu
+        check(np.array_equal(mu, ref_mu if stage == "reference_stats" else np.zeros(2048)),
+              f"image-metrics {stage}: reference statistics")
+        handler.batcher.prewarm()
+        server = make_server(handler, host="127.0.0.1", port=0)
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        results = [None, None]
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            d0 = handler.batcher.dispatches
+            for i, text in enumerate((PROMPT, emb)):
+                request_once(base, text, 20 + i, results, i, path="/image-metrics")
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            dispatches = handler.batcher.dispatches - d0
+        finally:
+            server.shutdown()
+            server.server_close()
+            handler.close()
+            th.join(30)
+        for i, r in enumerate(results):
+            check(r is not None and r[0]["status"] == "COMPLETED",
+                  f"image-metrics {stage} {i}: {r and r[0]}")
+            data = r[0]["data"]
+            imgs = [decode_png(base64.b64decode(b)) for b in data["images"]]
+            check(len(imgs) == 4 and all(im.shape == (64, 64, 3) for im in imgs),
+                  f"image-metrics {stage} {i}: images")
+            check(np.isfinite(data["fid_score"]), f"image-metrics {stage} {i}: {data['fid_score']}")
+        want = {k: v * dispatches for k, v in EVAL_CALL_LAUNCHES.items()}
+        check(dispatches == 2 and launches == want,
+              f"image-metrics {stage}: {dispatches} calls, launches {launches}")
+        rows.append({"stage": stage, "fid_score": [r[0]["data"]["fid_score"] for r in results],
+                     "latency_ms": [r[1] for r in results], "launches": launches})
+        print("image_metrics " + json.dumps(rows[-1]), flush=True)
+    # the unbatched handler: a lone request at MAX_NUM_SAMPLES, sliced
+    handler = InferenceHandler.from_model_dir(model_dir, clip_params=towers, batching=False,
+                                              device="cuda")
+    check(handler.batcher is None, "batching=False kept a batcher")
+    handler.transform_fn({"text": emb.tolist(), "num_samples": 2, "seed": 5})  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    resp = handler.transform_fn({"text": emb.tolist(), "num_samples": 2, "seed": 5})
+    lone_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    imgs = [decode_png(base64.b64decode(b)) for b in resp["images"]]
+    check(len(imgs) == 2 and all(im.shape == (64, 64, 3) for im in imgs), "unbatched: images")
+    check(launches == EVAL_CALL_LAUNCHES, f"unbatched: launches {launches}")
+    handler.close()
+    row = {"image_metrics": rows, "unbatched_ms": lone_ms, "card": smi}
+    print(f"image-metrics latency ms {[r['latency_ms'] for r in rows]} (fallback, then "
+          f"reference_stats.npz); unbatched lone request {lone_ms:.1f} ms", flush=True)
+    return row
+
+
+def generate_cli_phase(model_path, root):
+    """(e) `cli.generate_images.main` at the default 64x64 configuration: a 2x2
+    grid of 4 samples, 128x128x3, and the expert statistics."""
+    from moegan_tpu_torch.cli import generate_images
+    from moegan_tpu_torch.infer.png import decode_png
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        path = generate_images.main(["--model_path", model_path, "--prompt", PROMPT,
+                                     "--output_dir", os.path.join(root, "images"),
+                                     "--show_experts", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check(os.path.basename(path) == "_".join(PROMPT.split())[:64] + ".png",
+          f"generate_images: {path}")
+    with open(path, "rb") as f:
+        grid = decode_png(f.read())
+    check(grid.shape == (128, 128, 3), f"generate_images: grid {grid.shape}")
+    text = buf.getvalue()
+    stats = json.loads(text[text.index("{"):])
+    check(set(stats) == {f"block_{i}" for i in range(5)}, f"generate_images: {sorted(stats)}")
+    check(launches == EVAL_CALL_LAUNCHES, f"generate_images: launches {launches}")
+    row = {"grid": list(grid.shape), "wall_s": wall, "launches": launches}
+    print("generate_images " + json.dumps(row), flush=True)
+    return row
+
+
+def evaluation_phase(dev, smi, tfa, tfm):
+    """Phase 13: (a) the flash and hard-routed fused MoE forwards at the
+    evaluator's batch-64 shapes; (b) Inception on the card against the CPU;
+    (c) the evaluate CLI; (d) /image-metrics and the unbatched handler; (e) the
+    generate_images CLI. Everything it writes lives in a temporary directory."""
+    out = {"flash_rows": flash_phase(dev, tfa, batch=EVAL_BATCH, tag="eval ", lse_tol=6e-3),
+           "moe_rows": moe_phase(dev, tfm, batch=EVAL_BATCH, tag="eval ")}
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="moegan_smoke_eval_")
+    cwd = os.getcwd()
+    try:
+        model_dir = os.path.join(root, "model")
+        os.makedirs(model_dir)
+        cfg, state_dict = build_model_dir(model_dir)
+        model_path = os.path.join(model_dir, "generator.npz")
+        out["features"] = features_phase(cfg, state_dict, smi)
+        torch.cuda.empty_cache()
+        out["evaluate"], out["evaluate_launches"] = evaluate_cli_phase(model_path, root, smi)
+        out["image_metrics"] = image_metrics_phase(
+            model_dir, os.path.join(root, "reference_stats_inception.npz"), root, smi)
+        out["generate"] = generate_cli_phase(model_path, root)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def evaluation_extras(p13) -> dict:
+    """The kernels line's numbers of rows 1 and 3-4 at the evaluator's batch 64,
+    summed over one generator call's launches: times, bounds, plain and library."""
+    fr, mr = p13["flash_rows"], p13["moe_rows"]
+
+    def total(rows, key):
+        return sum(r[key] for r in rows)
+
+    return {
+        "flash_attention_fwd": {f"eval_{k}": total(fr, k) for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms")},
+        "fused_moe_fwd": {f"eval_{k}": total(mr, k) for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms")},
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU")
@@ -2257,6 +2620,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     flash_rows = flash_phase(dev, tfa)
     moe_rows = moe_phase(dev, tfm)
+    moe_ties_phase(dev, tfm)
     flash_bwd_rows = flash_bwd_phase(dev, tfa)
     moe_bwd_rows = moe_bwd_phase(dev, tfm)
 
@@ -2284,6 +2648,8 @@ def main() -> None:
     cli_launches = cli_phase(smi)
     torch.cuda.empty_cache()
     p12 = training_configs_phase(dev, smi, tfa, tfm)
+    torch.cuda.empty_cache()
+    p13 = evaluation_phase(dev, smi, tfa, tfm)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -2321,6 +2687,8 @@ def main() -> None:
            for name, rows in (("layer_norm_fwd", ln_fwd_rows), ("layer_norm_bwd", ln_bwd_rows))},
     }
     for name, more in flagship_extras(p12).items():
+        extra.setdefault(name, {}).update(more)
+    for name, more in evaluation_extras(p13).items():
         extra.setdefault(name, {}).update(more)
     for name, rows, src, replaces, lib, shapes in (
         ("flash_attention_fwd", flash_rows, "moegan_tpu_torch/ops/csrc/flash_attention.cu",
@@ -2384,6 +2752,8 @@ def main() -> None:
             # options' 2 mini-steps (rank 0)
             **{f"{path}_launches": p12[f"{path}_launches"][name] for path in (
                 "flagship", "options", "progressive", "one_expert", "distributed_options")},
+            # phase 13's main path: cli.evaluate's Inception run (2 generator calls)
+            "evaluate_launches": p13["evaluate_launches"][name],
             **extra.get(name, {}),
         })
     print(smi, flush=True)

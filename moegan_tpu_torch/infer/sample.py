@@ -6,10 +6,13 @@ truncation, images clipped to [-1, 1]. z for a seed comes from a CPU
 caller that needs the JAX package's images passes z to `sample_raw`.
 String prompts are encoded by the tower pack's text tower (`encode_text`):
 the CLIP towers of `models.clip.load_clip_params` unless another pack (a
-toy pack) is given.
+toy pack) is given. `sample_aurora_gan` is the functional form over a
+generator file's flat parameters.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -17,6 +20,7 @@ import torch
 from moegan_tpu_torch import resolve_device
 from moegan_tpu_torch.config import GeneratorConfig
 from moegan_tpu_torch.models.generator import AuroraGenerator
+
 
 def is_string_prompt(prompt) -> bool:
     return isinstance(prompt, str) or (
@@ -90,3 +94,19 @@ def expert_utilization_stats(routing) -> dict:
             "top1_fraction": (counts / len(p)).tolist(),
         }
     return out
+
+
+def sample_aurora_gan(generator_params, text_prompt, num_samples: int = 1,
+                      truncation_psi: float = 0.7, *, cfg: Optional[GeneratorConfig] = None,
+                      clip_params=None, seed: int = 0, device="cuda") -> torch.Tensor:
+    """Functional mirror of the JAX package's `sample_aurora_gan`: images
+    [N, R, R, 3] in [-1, 1] on `device`. `generator_params` is the flat JAX
+    layout that `utils.checkpoint.load_generator_params` returns; with
+    cfg=None the architecture is recovered from its shapes."""
+    from moegan_tpu_torch.convert import jax_to_torch
+    from moegan_tpu_torch.utils.checkpoint import infer_generator_config
+
+    if cfg is None:
+        cfg = infer_generator_config(generator_params)
+    sampler = Sampler(cfg, jax_to_torch(generator_params), device=device, clip_params=clip_params)
+    return sampler(text_prompt, num_samples, truncation_psi, seed)

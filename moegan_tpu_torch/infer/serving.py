@@ -12,9 +12,13 @@ startup: `CLIP_WEIGHTS_PATH`'s converted `.npz`, else the random init) or a
 512-float embedding. The model directory holds the JAX package's
 `aurora_model_final.msgpack` (or another `.msgpack` or `.npz` generator).
 
-Differences from the JAX package, by design of this slice:
-- `calculate_fid` (and /image-metrics) needs Inception, a later slice; such
-  a request fails with an error that says so.
+`calculate_fid` (forced on by POST /image-metrics, which caps
+num_samples at 4) adds `fid_score`: the request's images against
+`reference_stats.npz` in the working directory (μ=0, Σ=I when it is
+missing), InceptionV3 features on the handler's device and a 2048-d scipy
+`sqrtm` on the host (seconds a request).
+
+Differences from the JAX package:
 - z for a seed comes from a `torch.Generator`, not `jax.random`, so the
   same seed gives other images than the JAX server.
 - PNGs are written with the standard library (`infer/png.py`).
@@ -39,14 +43,11 @@ import numpy as np
 import torch
 
 from moegan_tpu_torch.config import GeneratorConfig
+from moegan_tpu_torch.infer.fid import FIDEvaluator
 from moegan_tpu_torch.infer.png import encode_png
 from moegan_tpu_torch.infer.sample import Sampler, expert_utilization_stats, is_string_prompt
 
 MAX_NUM_SAMPLES = 4
-FID_MISSING = (
-    "calculate_fid needs the Inception feature extractor, which is not ported yet "
-    "(a later slice of the port)"
-)
 
 _SEED_BASE = int.from_bytes(os.urandom(4), "little")
 _SEED_COUNTER = itertools.count()
@@ -214,19 +215,26 @@ class MicroBatcher:
 
 
 class InferenceHandler:
-    """MMS-style handler: transform_fn / handle with the reference's schema."""
+    """MMS-style handler: transform_fn / handle with the reference's schema.
 
-    def __init__(self, sampler: Sampler, batcher: MicroBatcher):
+    Without a `batcher`, each request runs the sampler alone at
+    MAX_NUM_SAMPLES and keeps its first num_samples images."""
+
+    def __init__(self, sampler: Sampler, fid: Optional[FIDEvaluator] = None,
+                 batcher: Optional[MicroBatcher] = None):
         self.sampler = sampler
+        self.fid = fid
         self.batcher = batcher
 
     @classmethod
-    def from_model_dir(cls, model_dir: str, device="cuda",
-                       clip_params=None) -> "InferenceHandler":
-        """Load the generator under model_dir (architecture from a
-        `generator_config.json` beside it, else from the param shapes) and the
+    def from_model_dir(cls, model_dir: str, cfg: Optional[GeneratorConfig] = None,
+                       clip_params=None, batching: bool = True,
+                       device="cuda") -> "InferenceHandler":
+        """Load the generator under model_dir (architecture `cfg`, else from a
+        `generator_config.json` beside it, else from the param shapes), the
         tower pack that encodes string prompts (`clip_params`, default the CLIP
-        towers of `models.clip.load_clip_params`)."""
+        towers of `models.clip.load_clip_params`) and the FID evaluator
+        (InceptionV3, `reference_stats.npz` read from the working directory)."""
         from moegan_tpu_torch.convert import jax_to_torch
         from moegan_tpu_torch.models.clip import load_clip_params
         from moegan_tpu_torch.utils.checkpoint import infer_generator_config, load_generator_params
@@ -236,46 +244,57 @@ class InferenceHandler:
             raise FileNotFoundError(f"no model artifact under {model_dir}")
         flat = load_generator_params(path)
         cfg_path = os.path.join(model_dir, "generator_config.json")
-        if os.path.exists(cfg_path):
+        if cfg is None and os.path.exists(cfg_path):
             with open(cfg_path) as f:
                 cfg = GeneratorConfig.from_dict(json.load(f))
-        else:
+        elif cfg is None:
             cfg = infer_generator_config(flat)
         if clip_params is None:
             clip_params = load_clip_params(device=device)
         sampler = Sampler(cfg, jax_to_torch(flat), device=device, clip_params=clip_params)
-        return cls(sampler, MicroBatcher(sampler))
+        fid = FIDEvaluator(reference_stats_path="reference_stats.npz", device=sampler.device)
+        return cls(sampler, fid, MicroBatcher(sampler) if batching else None)
 
     def close(self) -> None:
-        self.batcher.close()
+        if self.batcher is not None:
+            self.batcher.close()
 
     def transform_fn(self, request: dict) -> dict:
         """{text (a prompt or a 512-float embedding), num_samples, truncation_psi,
-        seed?} -> {images, prompt, expert_utilization}."""
+        seed?, calculate_fid?} -> {images, prompt, expert_utilization, fid_score?}."""
         text = request.get("text", "")
         if text is None or (not isinstance(text, (list, tuple, np.ndarray)) and not text):
             raise ValueError("request must include 'text'")
-        if request.get("calculate_fid"):
-            raise NotImplementedError(FID_MISSING)
         num_samples = min(int(request.get("num_samples", 1)), MAX_NUM_SAMPLES)
         psi = float(request.get("truncation_psi", 0.7))
         raw_seed = request.get("seed")
         seed = int(raw_seed) if raw_seed is not None else next_default_seed()
-        if is_string_prompt(text):  # a list of prompts serves its first, as in JAX
-            emb = self.sampler.encode_text(text)[0].cpu().numpy()
-        else:
-            emb = np.asarray(text, np.float32).reshape(-1)
 
-        ev, box = self.batcher.submit(emb, psi, seed)
-        if not ev.wait(timeout=120.0):
-            raise TimeoutError("generation timed out in the batcher")
-        if "error" in box:
-            raise RuntimeError(box["error"])
-        return {
-            "images": images_to_b64_pngs(box["images"][:num_samples]),
-            "prompt": text if is_string_prompt(text) else emb.tolist(),
-            "expert_utilization": expert_utilization_stats(box["routing"]),
+        string = is_string_prompt(text)
+        emb = None if string else np.asarray(text, np.float32).reshape(-1)
+        if self.batcher is not None:
+            if string:  # a list of prompts serves its first, as in JAX
+                emb = self.sampler.encode_text(text)[0].cpu().numpy()
+            ev, box = self.batcher.submit(emb, psi, seed)
+            if not ev.wait(timeout=120.0):
+                raise TimeoutError("generation timed out in the batcher")
+            if "error" in box:
+                raise RuntimeError(box["error"])
+            images = box["images"][:num_samples]
+            stats = expert_utilization_stats(box["routing"])
+        else:
+            # one generator shape serves every request: MAX_NUM_SAMPLES, then slice
+            images, stats = self.sampler(text if string else emb, MAX_NUM_SAMPLES, psi,
+                                         seed=seed, return_stats=True)
+            images = images[:num_samples].float().cpu().numpy()
+        resp = {
+            "images": images_to_b64_pngs(images),
+            "prompt": text if string else emb.tolist(),
+            "expert_utilization": stats,
         }
+        if request.get("calculate_fid") and self.fid is not None:
+            resp["fid_score"] = self.fid(images)
+        return resp
 
     def handle(self, data, context=None):
         """MMS entry: list of {'body': bytes} -> list of JSON strings."""
@@ -373,7 +392,8 @@ def make_server(handler: InferenceHandler, *, metrics: Optional[dict] = None,
                 if not payload.get("text"):
                     return self._send(400, {"error": "missing 'text'"})
                 if self.path == "/image-metrics":
-                    payload = {**payload, "calculate_fid": True}
+                    payload = {**payload, "calculate_fid": True, "num_samples": min(
+                        int(payload.get("num_samples", MAX_NUM_SAMPLES)), MAX_NUM_SAMPLES)}
                 rid = str(uuid.uuid4())
                 store.put(rid, "INITIALIZING")
                 threading.Thread(target=run_job, args=(rid, payload), daemon=True).start()

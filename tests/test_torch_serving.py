@@ -122,7 +122,13 @@ def _poll(base, rid, timeout=60.0):
     raise TimeoutError(rid)
 
 
-def test_http_round_trip_and_missing_slices(handler):
+def test_http_round_trip_and_missing_slices(handler, tmp_path):
+    # /image-metrics through an evaluator of 8 pixel columns (the handler's own
+    # holds InceptionV3 and a 2048-d sqrtm, seconds on the CPU)
+    fid = serving.FIDEvaluator(
+        lambda x: np.asarray(x, np.float32).reshape(len(x), -1)[:, :8], feature_dim=8)
+    fid.load_reference_stats(str(tmp_path / "reference_stats.npz"))  # missing: mu=0, Sigma=I
+    inception_fid, handler.fid = handler.fid, fid
     server = serving.make_server(handler, host="127.0.0.1", port=0)
     th = threading.Thread(target=server.serve_forever, daemon=True)
     th.start()
@@ -139,11 +145,16 @@ def test_http_round_trip_and_missing_slices(handler):
         assert emb.shape == (512,) and np.isfinite(emb).all()
         direct = handler.transform_fn({"text": emb.tolist(), "num_samples": 3, "seed": 4})
         assert job["data"]["images"] == direct["images"]
-        job = _poll(base, _post(f"{base}/image-metrics", {"text": EMB.tolist()})["request_id"])
-        assert job["status"] == "FAILED" and "Inception" in job["data"]["error"]
+        rid = _post(f"{base}/image-metrics", {"text": EMB.tolist(), "num_samples": 9,
+                                              "seed": 4})["request_id"]
+        job = _poll(base, rid)
+        assert job["status"] == "COMPLETED", job["data"]
+        assert len(job["data"]["images"]) == 4  # capped at MAX_NUM_SAMPLES
+        assert np.isfinite(job["data"]["fid_score"]) and job["data"]["fid_score"] > 0
         with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
             assert json.loads(r.read()) == {"status": "ok"}
     finally:
+        handler.fid = inception_fid
         server.shutdown()
         server.server_close()
         th.join(10)
@@ -214,10 +225,10 @@ def test_save_npz_reads_back_in_both_packages(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the training and distributed slices' included),
-    chip_smoke.py, the port's profile scripts and the helper module that the
-    distributed tests spawn their ranks from import with jax, flax, optax,
-    msgpack, orbax and moegan_tpu blocked."""
+    """Every module of the port (the training, distributed and evaluation
+    slices' included), chip_smoke.py, the port's profile scripts and the
+    helper module that the distributed tests spawn their ranks from import
+    with jax, flax, optax, msgpack, orbax and moegan_tpu blocked."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'orbax', 'moegan_tpu'):\n"
@@ -249,6 +260,9 @@ def test_port_imports_no_jax():
             "moegan_tpu_torch.models.bpe", "moegan_tpu_torch.models.clip",
             "moegan_tpu_torch.models.toy_clip", "moegan_tpu_torch.losses.clip_loss",
             "moegan_tpu_torch.cli.train_model"} <= names
+    assert {"moegan_tpu_torch.models.inception", "moegan_tpu_torch.infer.fid",
+            "moegan_tpu_torch.infer.evaluate", "moegan_tpu_torch.cli.evaluate",
+            "moegan_tpu_torch.cli.generate_images"} <= names
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
