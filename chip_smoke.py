@@ -2,8 +2,9 @@
 """Drive the PyTorch port's 64x64 serving path, training step, distributed
 training, opt-in kernel configuration, training CLI, training
 configurations (the flagship preset, the step's options, progressive
-training, one expert) and generation and evaluation (FID, CLIPScore,
-/image-metrics, the evaluate and generate_images CLIs) on one NVIDIA GPU
+training, one expert), generation and evaluation (FID, CLIPScore,
+/image-metrics, the evaluate and generate_images CLIs) and the MLOps chain
+(data processing, tuning, the managed job, deployment) on one NVIDIA GPU
 and check them.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
@@ -131,6 +132,24 @@ failure (non-zero exit, no result line):
    and then with (c)'s file, fid_score finite, latency reported; a lone
    request to the `batching=False` handler; (e) `cli.generate_images` writes
    a 2x2 grid (128x128x3) and prints the expert statistics.
+14. the MLOps chain: four stages on an `orchestration.Pipeline` with the
+   upload-data and run-hpo flags set: (a) `cli.process_data --synthetic 2048`
+   (1,000 validation, 1,048 train, 3,144 augmented 64x64 images; the card's
+   text embeddings of 32 captions against the CPU's float32 tower, cosine >=
+   0.999; the card's augmentations against the same function on the CPU,
+   <= 1e-4; wall seconds of resize, tower set-up, text, augment and write);
+   (b) `cli.tune` on (a)'s data cut to 128 / 64 images and 2 epochs, the
+   search space's batch 8 at res 16 with the CLI's full channels: 4 trials
+   in process, 2 at a time, then 2 as job-runner processes, then 1 alone;
+   objectives finite, two trials overlapping, the three files with the JAX
+   package's keys, the flash and fused MoE kernels launched by the trials in
+   process; (c) `cli.job_train` with the best hyperparameters at the CLI's
+   defaults (64x64, batch 32, the CLIP loss) for 1 epoch on 128 train images:
+   exactly 4 steps' and 31 validation batches' launches, ms/step; then the
+   model directory published (`model_metrics.json`) and served: one
+   /generate of 4 images, GET /metrics returning the document; every stage
+   SUCCEEDED and both flags reset; (e) `train_toy_clip` on 1,024 shapes on
+   the card for 200 steps, its loss falling, and `retrieval_accuracy`.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -141,6 +160,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import functools
+import glob
 import io
 import itertools
 import json
@@ -2599,6 +2619,356 @@ def evaluation_extras(p13) -> dict:
     }
 
 
+# --- phase 14: the MLOps chain ----------------------------------------------------------
+
+# cli.process_data --synthetic: 1,000 validation, 1,048 train and 3,144 augmented
+# 64x64 images (the pipeline's split: min(max(1000, n // 5), n // 2) validation).
+MLOPS_SAMPLES = 2048
+MLOPS_VAL = min(max(1000, MLOPS_SAMPLES // 5), MLOPS_SAMPLES // 2)
+MLOPS_TRAIN = MLOPS_SAMPLES - MLOPS_VAL
+# Cuts, printed by the phase: the trials train on the first TUNE_TRAIN train and
+# TUNE_VAL validation images of the processed set (16 steps an epoch at the
+# search space's batch 8) for TUNE_EPOCHS epochs (the search space's 6); the job
+# on int(1048 * JOB_PERCENTAGE) = 128 train images (4 steps at batch 32) and all
+# 1,000 validation images (31 batches).
+TUNE_TRAIN, TUNE_VAL, TUNE_EPOCHS = 128, 64, 2
+JOB_PERCENTAGE = 0.1225
+# Captions whose card embeddings are held to the CPU's float32 text tower (a
+# float32 ViT-B/32 text pass costs ~12 GFLOP a caption on the host), to the
+# prompts check's limit.
+EMBED_CHECK = 32
+# The card's augmentations against the same function on the CPU: the same
+# float32 and float64 arithmetic, other summation orders.
+AUG_TOL = 1e-4
+TOY_SAMPLES, TOY_STEPS = 1024, 200
+# The rows a trial or the job launches: flash forward and backward, the fused
+# MoE forward (rows 3-4) and backward (row 5).
+CHAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_moe_fwd", "fused_moe_bwd")
+# The keys of the JAX package's describe_best, trial_timeline and
+# publish_model_metrics.
+BEST_KEYS = {"BestTrainingJob", "FinalHyperParameters", "FinalObjectiveValue"}
+TIMELINE_KEYS = {"trial_id", "status", "objective", "started_at", "ended_at"}
+METRICS_KEYS = {"model_name", "training_job", "timestamp", "metrics", "hyperparameters"}
+
+
+def logged(fn):
+    """A pipeline stage that prints its traceback before the pipeline records it."""
+    @functools.wraps(fn)
+    def stage(ctx):
+        try:
+            return fn(ctx)
+        except Exception:
+            import traceback
+
+            traceback.print_exc()
+            raise
+
+    return stage
+
+
+def preprocessing_stage(ctx):
+    """(a) `cli.process_data --synthetic 2048` on the card: the artifacts, the
+    card's text embeddings against the CPU's float32 tower, the card's
+    augmentations against the CPU's, the wall seconds of each part."""
+    from moegan_tpu_torch.cli import process_data
+    from moegan_tpu_torch.data import augment, pipeline
+    from moegan_tpu_torch.data.datasets import ProcessedMSCOCODataset
+    from moegan_tpu_torch.models import clip
+
+    data = os.path.join(ctx["root"], "data")
+    targets = {"resize": (pipeline, "_resize_batch"), "towers": (clip, "load_clip_params"),
+               "text": (pipeline, "extract_clip_text_embeddings"),
+               "augment": (augment, "create_augmentations"),
+               "write": (ProcessedMSCOCODataset, "save")}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with timed_calls(targets) as (spent, _), contextlib.redirect_stdout(buf):
+        info = process_data.main(["--synthetic", str(MLOPS_SAMPLES), "--output_dir", data,
+                                  "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    seconds = {k: v[0] for k, v in spent.items()}
+    seconds["text"] -= seconds["towers"]  # the towers load inside the text call
+    seconds["rest"] = wall - sum(seconds.values())
+    check((info["n_train"], info["n_val"]) == (MLOPS_TRAIN, MLOPS_VAL), f"process_data: {info}")
+    names = set(os.listdir(data))
+    want = {f"mscoco_{s}_{k}.npy" for s in ("train", "validation", "train_augmented")
+            for k in ("images", "text_embeddings", "captions")}
+    want |= {"mscoco_train_metadata.pkl", "dataset_statistics.json", "sample_grid.png"}
+    check(want <= names, f"process_data: missing {sorted(want - names)}")
+
+    val = ProcessedMSCOCODataset.load(data, "validation", return_captions=True)
+    with torch.no_grad():
+        tower = clip.load_clip_params(device="cpu", compute_dtype="float32")
+        cpu_emb = tower.encode_text(list(val.captions[:EMBED_CHECK])).double()
+    del tower
+    card_emb = torch.from_numpy(val.text_embeddings[:EMBED_CHECK]).double()
+    cos = torch.nn.functional.cosine_similarity(card_emb, cpu_emb, dim=-1)
+    check(cos.min().item() >= 0.999, f"process_data: embedding cosine {cos.min().item()} < 0.999")
+
+    train = ProcessedMSCOCODataset.load(data, "train", return_captions=True)
+    aug = ProcessedMSCOCODataset.load(data, "train", augmented=True, return_captions=True)
+    t1 = time.perf_counter()
+    cpu_aug = augment.create_augmentations(train.images, train.text_embeddings, train.captions,
+                                           aug_factor=2, seed=0, device="cpu")
+    cpu_aug_s = time.perf_counter() - t1
+    aug_err = float(np.abs(aug.images - cpu_aug[0]).max())
+    check(aug.images.shape == (3 * MLOPS_TRAIN, 64, 64, 3) and aug_err <= AUG_TOL,
+          f"process_data: augmented {aug.images.shape}, card against CPU {aug_err} > {AUG_TOL}")
+    check(np.array_equal(aug.text_embeddings, cpu_aug[1])
+          and list(aug.captions) == list(cpu_aug[2]), "process_data: augmented embeddings")
+    row = {"samples": MLOPS_SAMPLES, "n_train": info["n_train"], "n_val": info["n_val"],
+           "n_augmented": len(aug), "wall_s": wall, "seconds": seconds,
+           "embed_cosine_min": cos.min().item(), "embed_checked": EMBED_CHECK,
+           "aug_max_abs_err": aug_err, "cpu_augment_s": cpu_aug_s, "card": ctx["smi"]}
+    print(f"process_data {MLOPS_SAMPLES} samples in {wall:.1f} s: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()), flush=True)
+    print("process_data " + json.dumps(row), flush=True)
+    return {"data_dir": data, "preprocessing": row}
+
+
+def job_logs(out_dir) -> str:
+    """The ends of the job runner's logs under `out_dir`, for a failure message."""
+    tails = []
+    for path in sorted(glob.glob(os.path.join(out_dir, "jobs", "*", "stdout.log"))):
+        with open(path, errors="replace") as f:
+            tails.append(f"{path}:\n{f.read()[-3000:]}")
+    return "\n".join(tails)
+
+
+def hpo_stage(ctx):
+    """(b) `cli.tune` on the card over (a)'s data, cut (see TUNE_*): 4 trials in
+    process, 2 at a time, 2 warm-up; 2 trials as job-runner processes, 2 at a
+    time; 1 trial alone in process (its time without a second thread). Every
+    objective finite, two trials overlapping, the three files with the JAX
+    package's keys, the chain's kernels launched by the 4 trials in process."""
+    from moegan_tpu_torch.cli import tune
+    from moegan_tpu_torch.data.datasets import ProcessedMSCOCODataset
+
+    root = ctx["root"]
+    tune_data = os.path.join(root, "tune_data")
+    for split, n in (("train", TUNE_TRAIN), ("validation", TUNE_VAL)):
+        ds = ProcessedMSCOCODataset.load(ctx["data_dir"], split, return_captions=True)
+        ProcessedMSCOCODataset(ds.images[:n], ds.text_embeddings[:n], ds.captions[:n]).save(
+            tune_data, split)
+    with open(os.path.join(ROOT, "configs", "hyperparameter_config.json")) as f:
+        space = json.load(f)
+    static = space["static_hyperparameters"]
+    print(f"tune cuts: trials on {TUNE_TRAIN} train / {TUNE_VAL} validation images of the "
+          f"processed set, {TUNE_EPOCHS} epochs (the search space's {static['epochs']})",
+          flush=True)
+    static["epochs"] = str(TUNE_EPOCHS)
+    space_path = os.path.join(root, "tune_space.json")
+    with open(space_path, "w") as f:
+        json.dump(space, f)
+    rows, best = {}, None
+    # (label, trial mode, trials, at a time): the last run times one trial alone
+    for label, mode, jobs, parallel in (("in-process", "in-process", 4, 2),
+                                        ("subprocess", "subprocess", 2, 2),
+                                        ("in-process alone", "in-process", 1, 1)):
+        out = os.path.join(root, f"hpo_{label.replace(' ', '_')}")
+        argv = ["--config", space_path, "--data_dir", tune_data, "--out_dir", out,
+                "--max_jobs", str(jobs), "--max_parallel_jobs", str(parallel),
+                "--warmup_jobs", "2", "--trial_mode", mode, "--device", "cuda"]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            info = tune.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        files = {}
+        for name in ("best_hyperparameters", "trial_timeline", "model_metrics"):
+            with open(os.path.join(out, f"{name}.json")) as f:
+                files[name] = json.load(f)
+        timeline = files["trial_timeline"]
+        check(len(timeline) == jobs and all(
+            t["status"] == "COMPLETED" and np.isfinite(t["objective"]) for t in timeline),
+            f"tune {label}: {timeline}\n{job_logs(out)}")
+        check(parallel == 1 or any(
+            a["started_at"] < b["ended_at"] and b["started_at"] < a["ended_at"]
+            for a in timeline for b in timeline if a["trial_id"] < b["trial_id"]),
+            f"tune {label}: no two trials overlapped: {timeline}")
+        check(set(files["best_hyperparameters"]) == BEST_KEYS
+              and files["best_hyperparameters"] == info
+              and all(set(t) == TIMELINE_KEYS for t in timeline)
+              and set(files["model_metrics"]) == METRICS_KEYS,
+              f"tune {label}: files {files}")
+        if label == "in-process":
+            # the counters are plain ints bumped from two threads: a lost update
+            # lowers a count, never to 0
+            check(all(launches[k] > 0 for k in CHAIN_KERNELS)
+                  and not any(v for k, v in launches.items() if k not in CHAIN_KERNELS),
+                  f"tune in-process: launches {launches}")
+            best = info["FinalHyperParameters"]
+        trial_s = [t["ended_at"] - t["started_at"] for t in timeline]
+        rows[label] = {"trials": jobs, "parallel": parallel, "wall_s": wall, "trial_s": trial_s,
+                       "objectives": [t["objective"] for t in timeline],
+                       "best": info["FinalObjectiveValue"], "launches": launches,
+                       "timeline": timeline, "card": ctx["smi"]}
+        print(f"tune {label}: {jobs} trials, {parallel} at a time, in {wall:.1f} s, trial "
+              f"seconds {[round(s, 2) for s in trial_s]}, best "
+              f"{info['FinalObjectiveValue']:.4f}", flush=True)
+        print("tune " + json.dumps({"mode": label, **rows[label]}), flush=True)
+    return {"best_hyperparameters": best, "hpo": rows}
+
+
+def training_stage(ctx):
+    """(c) `cli.job_train` with the in-process search's best hyperparameters at the
+    CLI's defaults (64x64, batch 32, the CLIP loss), one epoch on the cut train
+    split: losses finite, the files written, the launches of 4 steps and 31
+    validation batches exactly, ms/step."""
+    from moegan_tpu_torch.cli import job_train
+
+    root = ctx["root"]
+    job_dir, model_dir = os.path.join(root, "job"), os.path.join(root, "model")
+    hp = {**ctx["best_hyperparameters"], "epochs": "1", "batch_size": str(CLI_BATCH),
+          "use_percentage": str(JOB_PERCENTAGE)}
+    os.makedirs(job_dir)
+    hp_path = os.path.join(job_dir, "hyperparameters.json")
+    with open(hp_path, "w") as f:
+        json.dump({k: str(v) for k, v in hp.items()}, f)
+    n_train = int(MLOPS_TRAIN * JOB_PERCENTAGE)
+    print(f"job cuts: 1 epoch, use_percentage {JOB_PERCENTAGE} of the {MLOPS_TRAIN} train "
+          f"images ({n_train}), batch {CLI_BATCH}", flush=True)
+    times, metrics = [], []
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with env_flags({"JOB_DIR": job_dir, "HYPERPARAMETERS_PATH": hp_path, "MODEL_DIR": model_dir,
+                    "DATA_DIR": ctx["data_dir"]}), timed_steps(times, metrics), \
+            contextlib.redirect_stdout(buf):
+        state = job_train.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    steps, val_batches = n_train // CLI_BATCH, MLOPS_VAL // CLI_BATCH
+    want = {k: steps * n + val_batches * EXPECTED_EVAL_LAUNCHES.get(k, 0)
+            for k, n in EXPECTED_STEP_LAUNCHES.items()}
+    check(len(times) == steps and state.step == steps, f"job: {len(times)} steps")
+    check(launches == want, f"job: launches {launches}, want {want}")
+    check(all(np.isfinite(np.asarray(v, np.float64)).all() for m in metrics for v in m.values()),
+          "job: non-finite step metrics")
+    for path in ("aurora_model_final.msgpack", "generator_config.json"):
+        check(os.path.exists(os.path.join(model_dir, path)), f"job: no {path}")
+    check(os.listdir(os.path.join(job_dir, "checkpoints")), "job: no checkpoint")
+    with open(os.path.join(job_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    val = {r["name"]: r["value"] for r in records if r["name"].startswith("val_")}
+    check("val_clip_loss" in val and all(np.isfinite(v) for v in val.values()), f"job: {val}")
+    row = {"hyperparameters": hp, "steps": steps, "wall_s": wall, "step_ms": times,
+           "ms_per_step": float(np.median(times[2:])), "val": val, "launches": launches,
+           "card": ctx["smi"]}
+    print(f"job: {steps} steps at batch {CLI_BATCH}, step ms {[round(t, 1) for t in times]} "
+          f"(median of steps 3-{steps}: {row['ms_per_step']:.1f}), wall {wall:.1f} s", flush=True)
+    print("job " + json.dumps(row), flush=True)
+    return {"model_dir": model_dir, "job_hyperparameters": hp, "val_metrics": val, "job": row}
+
+
+def deployment_stage(ctx):
+    """(c) the job's model directory published and served: model_metrics.json,
+    one /generate of 4 64x64 images, GET /metrics returning the document."""
+    from moegan_tpu_torch.infer.png import decode_png
+    from moegan_tpu_torch.infer.serving import InferenceHandler, make_server
+    from moegan_tpu_torch.orchestration.pipeline import publish_model_metrics
+
+    model_dir = ctx["model_dir"]
+    doc = publish_model_metrics(ctx["val_metrics"], os.path.join(model_dir, "model_metrics.json"),
+                                training_job="job", hyperparameters=ctx["job_hyperparameters"])
+    t0 = time.perf_counter()
+    handler = InferenceHandler.from_model_dir(model_dir, device="cuda")
+    load_s = time.perf_counter() - t0
+    server = make_server(handler, metrics=doc, host="127.0.0.1", port=0)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(SEED + 40)
+    results = [None]
+    try:
+        request_once(base, rng.standard_normal(512).astype(np.float32), 3, results, 0)
+        served = http_json(f"{base}/metrics")
+        images, _ = handler.sampler.sample_raw(rng.standard_normal((4, 512)).astype(np.float32),
+                                               rng.standard_normal((4, 512)).astype(np.float32),
+                                               np.ones(4, np.float32))
+        torch.cuda.synchronize()
+    finally:
+        server.shutdown()
+        server.server_close()
+        handler.close()
+        th.join(30)
+    job, latency = results[0]
+    check(job["status"] == "COMPLETED", f"deploy: {job}")
+    imgs = [decode_png(base64.b64decode(b)) for b in job["data"]["images"]]
+    check(len(imgs) == 4 and all(im.shape == (64, 64, 3) for im in imgs), "deploy: images")
+    check(tuple(images.shape) == (4, 64, 64, 3) and bool(torch.isfinite(images).all()),
+          "deploy: the served generator's images")
+    check(served == json.loads(json.dumps(doc)), f"deploy: /metrics {served}")
+    row = {"load_s": load_s, "latency_ms": latency, "metrics": served["metrics"]}
+    print("deploy " + json.dumps(row), flush=True)
+    return {"deployment": row}
+
+
+def toy_clip_phase(smi):
+    """(e) `train_toy_clip` on `shapes_dataset` on the card: the loss falls;
+    `retrieval_accuracy` of the trained towers."""
+    from moegan_tpu_torch.data.datasets import shape_class_names, shapes_dataset
+    from moegan_tpu_torch.models.toy_clip import retrieval_accuracy, train_toy_clip
+
+    ds, labels = shapes_dataset(TOY_SAMPLES, 16, SEED)
+    losses = []
+    t0 = time.perf_counter()
+    model = train_toy_clip(ds.images, ds.captions, steps=TOY_STEPS, batch_size=256, seed=SEED,
+                           log_every=0, device="cuda", losses=losses)
+    wall = time.perf_counter() - t0
+    acc = retrieval_accuracy(model, ds.images, labels, shape_class_names())
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    check(np.isfinite(losses).all() and last < first, f"toy clip: loss {first} -> {last}")
+    row = {"samples": TOY_SAMPLES, "steps": TOY_STEPS, "loss_first20": first,
+           "loss_last20": last, "retrieval_accuracy": acc, "wall_s": wall, "card": smi}
+    print(f"toy clip: infonce {first:.3f} -> {last:.3f} over {TOY_STEPS} steps in {wall:.1f} s, "
+          f"retrieval accuracy {acc:.3f}", flush=True)
+    print("toy_clip " + json.dumps(row), flush=True)
+    return row
+
+
+def mlops_phase(smi):
+    """Phase 14: the four stages on a `Pipeline` with upload-data and run-hpo set
+    ((a) process, (b) tune, (c) the job, then deployment); every stage
+    SUCCEEDED and both one-shot flags reset; then (e) the toy CLIP."""
+    from moegan_tpu_torch.orchestration import STAGES, Pipeline
+
+    root = tempfile.mkdtemp(prefix="moegan_smoke_mlops_")
+    cwd = os.getcwd()
+    try:
+        p = Pipeline(os.path.join(root, "pipeline"))
+        for stage, fn in zip(STAGES, (preprocessing_stage, hpo_stage, training_stage,
+                                      deployment_stage)):
+            p.register(stage, logged(fn))
+        p.flags.set("upload-data", True)
+        p.flags.set("run-hpo", True)
+        t0 = time.perf_counter()
+        ctx = p.run({"root": root, "smi": smi})
+        wall = time.perf_counter() - t0
+        with open(os.path.join(p.work_dir, "pipeline_run.json")) as f:
+            history = json.load(f)["history"]
+        check([(h["stage"], h["status"]) for h in history]
+              == [(s, "SUCCEEDED") for s in STAGES], f"pipeline: {history}")
+        check(not p.flags.get("upload-data") and not p.flags.get("run-hpo"),
+              f"pipeline: flags {p.flags.all()}")
+        print("pipeline " + json.dumps({"history": history, "wall_s": wall}), flush=True)
+        torch.cuda.empty_cache()
+        toy = toy_clip_phase(smi)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = {k: ctx["hpo"]["in-process"]["launches"][k] + ctx["job"]["launches"][k]
+                for k in EXPECTED_STEP_LAUNCHES}
+    return {"ctx": ctx, "toy": toy, "launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU")
@@ -2650,6 +3020,8 @@ def main() -> None:
     p12 = training_configs_phase(dev, smi, tfa, tfm)
     torch.cuda.empty_cache()
     p13 = evaluation_phase(dev, smi, tfa, tfm)
+    torch.cuda.empty_cache()
+    p14 = mlops_phase(smi)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -2754,6 +3126,9 @@ def main() -> None:
                 "flagship", "options", "progressive", "one_expert", "distributed_options")},
             # phase 13's main path: cli.evaluate's Inception run (2 generator calls)
             "evaluate_launches": p13["evaluate_launches"][name],
+            # phase 14's main path: the 4 in-process trials (their threads' counts
+            # may lose an update) and the managed job (4 steps, 31 validation batches)
+            "mlops_launches": p14["launches"][name],
             **extra.get(name, {}),
         })
     print(smi, flush=True)

@@ -11,8 +11,9 @@ moegan_tpu/models/toy_clip.py): a stand-in for CLIP with 512-dim embeddings.
 
 A tower pack of the form {"toy": ToyCLIP} is recognised by
 `losses/clip_loss.py` and the `Sampler` in place of the CLIP towers
-(`as_tower_pack`). `train_toy_clip` and `retrieval_accuracy` are not ported
-yet: they need the shapes dataset.
+(`as_tower_pack`). `train_toy_clip` trains both towers from scratch with
+CLIP's symmetric InfoNCE on the device (the shapes corpus of
+`data/datasets.py::shapes_dataset`), `retrieval_accuracy` scores them.
 """
 
 from __future__ import annotations
@@ -152,6 +153,66 @@ def init_toy_params(resolution: int = 16, seed: int = 0) -> ToyCLIP:
             elif name.endswith("token_embedding"):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
     return model
+
+
+def infonce_loss(model: ToyCLIP, images: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """CLIP's symmetric InfoNCE over a batch of (native-resolution image,
+    caption tokens) pairs, the logit scale clipped to [e^-2, 100]."""
+    fi = model.image_features_preprocessed(images)
+    ft = model.text_features(tokens)
+    fi = fi / (fi.norm(dim=-1, keepdim=True) + 1e-8)
+    ft = ft / (ft.norm(dim=-1, keepdim=True) + 1e-8)
+    logits = model.logit_scale.clamp(-2.0, math.log(100.0)).exp() * fi @ ft.T
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
+
+
+def train_toy_clip(images_m11: np.ndarray, captions, *, steps: int = 1200,
+                   batch_size: int = 256, lr: float = 1e-3, seed: int = 0,
+                   log_every: int = 200, log=print, device="cuda",
+                   losses: list | None = None) -> ToyCLIP:
+    """Both towers trained from `init_toy_params(resolution, seed)` on
+    `device` (raises without a card unless "cpu"): each step the InfoNCE of
+    a batch drawn without replacement by `np.random.default_rng(seed)`, then
+    Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the square
+    root). `losses`, when given, receives every step's loss."""
+    from moegan_tpu_torch import resolve_device
+
+    dev = resolve_device(device)
+    images = torch.as_tensor(np.asarray(images_m11, np.float32), device=dev)
+    tokens = torch.as_tensor(tokenize(list(captions)), device=dev)
+    model = init_toy_params(resolution=images.shape[1], seed=seed).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    rng = np.random.default_rng(seed)
+    n = len(images)
+    for i in range(steps):
+        idx = torch.as_tensor(rng.choice(n, size=min(batch_size, n), replace=False), device=dev)
+        loss = infonce_loss(model, images[idx], tokens[idx])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        if losses is not None:
+            losses.append(loss.item())
+        if log_every and (i + 1) % log_every == 0:
+            log(f"[toy_clip] step {i + 1}/{steps} infonce={loss.item():.4f}")
+    return model.requires_grad_(False).eval()
+
+
+def retrieval_accuracy(model: ToyCLIP, images_m11: np.ndarray, labels: np.ndarray,
+                       class_captions, batch_size: int = 512) -> float:
+    """The share of images whose nearest class-caption embedding (cosine) is
+    their own (colour, shape) class."""
+    images = np.asarray(images_m11, np.float32)
+    correct = 0
+    with torch.inference_mode():
+        ft = model.encode_text(list(class_captions)).float()
+        for s in range(0, len(images), batch_size):
+            fi = model.image_features(torch.as_tensor(images[s:s + batch_size],
+                                                      device=model.device)).float()
+            fi = fi / (fi.norm(dim=-1, keepdim=True) + 1e-8)
+            pred = (fi @ ft.T).argmax(-1).cpu().numpy()
+            correct += int((pred == labels[s:s + batch_size]).sum())
+    return correct / len(images)
 
 
 def as_tower_pack(toy: ToyCLIP) -> dict:

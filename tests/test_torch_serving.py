@@ -225,13 +225,15 @@ def test_save_npz_reads_back_in_both_packages(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the training, distributed and evaluation
-    slices' included), chip_smoke.py, the port's profile scripts and the
+    """Every module of the port (the training, distributed, evaluation and
+    MLOps slices' included), chip_smoke.py, the port's profile scripts and the
     helper module that the distributed tests spawn their ranks from import
-    with jax, flax, optax, msgpack, orbax and moegan_tpu blocked."""
+    with jax, flax, optax, msgpack, orbax, moegan_tpu, PIL and matplotlib
+    blocked (the card's machine has neither PIL nor matplotlib)."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'orbax', 'moegan_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'orbax', 'moegan_tpu', 'PIL',\n"
+        "          'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         "import moegan_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'moegan_tpu_torch.')]\n"
@@ -248,7 +250,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 42
+    assert len(names) >= 66
     assert {"moegan_tpu_torch.models.discriminator", "moegan_tpu_torch.losses.gan",
             "moegan_tpu_torch.train.schedules", "moegan_tpu_torch.train.state",
             "moegan_tpu_torch.train.step"} <= names
@@ -263,6 +265,11 @@ def test_port_imports_no_jax():
     assert {"moegan_tpu_torch.models.inception", "moegan_tpu_torch.infer.fid",
             "moegan_tpu_torch.infer.evaluate", "moegan_tpu_torch.cli.evaluate",
             "moegan_tpu_torch.cli.generate_images"} <= names
+    assert {"moegan_tpu_torch.data.augment", "moegan_tpu_torch.data.pipeline",
+            "moegan_tpu_torch.cli.process_data", "moegan_tpu_torch.cli.tune",
+            "moegan_tpu_torch.cli.job_train", "moegan_tpu_torch.hpo.search",
+            "moegan_tpu_torch.orchestration.flags", "moegan_tpu_torch.orchestration.jobs",
+            "moegan_tpu_torch.orchestration.pipeline"} <= names
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
