@@ -3,9 +3,11 @@
 training, opt-in kernel configuration, training CLI, training
 configurations (the flagship preset, the step's options, progressive
 training, one expert), generation and evaluation (FID, CLIPScore,
-/image-metrics, the evaluate and generate_images CLIs) and the MLOps chain
-(data processing, tuning, the managed job, deployment) on one NVIDIA GPU
-and check them.
+/image-metrics, the evaluate and generate_images CLIs), the MLOps chain
+(data processing, tuning, the managed job, deployment), the generator's
+remat_blocks and use_pallas=False switches, the native batch gather, the
+profiling helpers, the DCGAN baseline and the prototype router on one
+NVIDIA GPU and check them.
 
 Run from the repository root: `python3 chip_smoke.py`. It needs one CUDA
 device and nvcc (it builds the port's kernels from `moegan_tpu_torch/ops/csrc`).
@@ -150,6 +152,22 @@ failure (non-zero exit, no result line):
    /generate of 4 images, GET /metrics returning the document; every stage
    SUCCEEDED and both flags reset; (e) `train_toy_clip` on 1,024 shapes on
    the card for 200 steps, its loss falling, and `retrieval_accuracy`.
+15. the generator switches and the last modules: (a) `remat_blocks=True`: 5
+   default steps at batch 64 (launches 9 / 3 flash, 15 / 5 fused MoE: the G
+   phase's backward runs each block's forward again), ms/step and peak
+   memory, and a batch-4 step's gradients against two runs without remat
+   (within 4x their own difference); (b) `use_pallas=False`: a batch-16
+   generator call against the CPU float32 one (phase 5's limit, pinned
+   routing) and 5 steps at batch 64, no kernel launched, printed beside
+   phase 6's step (`switches_vs_default`); (c) the native gather built by g++,
+   a batch-64 gather of a 1,048-image 64x64 split byte-equal to numpy, µs
+   each way; (d) `trace` around 2 default steps, `device_memory_stats`,
+   `MemoryMonitor.peak`; (e) the DCGAN baseline: 2 epochs of 256 synthetic
+   images at batch 64, `generate_image_from_text`, a batch-8 step against
+   the CPU's (losses within 5 %); (f) the prototype router
+   `MixtureOfExperts(512, 256, 9)`: `describe_selection` at the defaults (75
+   samples, 200 burn-in), `train_moe_with_clusters` for 2 epochs on 1,024
+   embeddings, the mean-weight forward against the CPU's within 1e-4.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -804,21 +822,29 @@ def image_stats(raw_card, raw_cpu):
 def pinned_routing(routing):
     """Make each generator block's hard routing pick exactly the experts of
     `routing` (the blocks' probs of an earlier call, in order), ties included:
-    text logits of +-1e4 clip to +-20."""
+    through the fused kernel's wrapper, text logits of +-1e4 clip to +-20;
+    on the `use_pallas=False` route the router returns the given one-hots."""
     import moegan_tpu_torch.core.moe as moe_mod
+    from moegan_tpu_torch.core.router import BayesianRouter
 
     probs = iter(routing)
-    plain = moe_mod.fused_moe_ffn
+    plain, route = moe_mod.fused_moe_ffn, BayesianRouter.forward
 
     def pinned(x, fw, cw_f, text_logits, inv_temp, *rest, hard=False):
         p = next(probs).reshape(text_logits.shape).to(text_logits.device)
         return plain(x, fw, cw_f, torch.where(p > 0, 1e4, -1e4), inv_temp, *rest, hard=hard)
 
+    def pinned_route(self, feature, text, **kwargs):
+        p, logits = route(self, feature, text, **kwargs)
+        return next(probs).reshape(p.shape).to(p), logits
+
     moe_mod.fused_moe_ffn = pinned
+    BayesianRouter.forward = pinned_route
     try:
         yield
     finally:
         moe_mod.fused_moe_ffn = plain
+        BayesianRouter.forward = route
 
 
 def generator_phase(cfg, state_dict, n=4, label="generator_vs_cpu", same_precision=False):
@@ -2969,7 +2995,300 @@ def mlops_phase(smi):
     return {"ctx": ctx, "toy": toy, "launches": launches}
 
 
+# --- phase 15: the generator switches, the native gather, profiling, DCGAN, prototype --------
+
+# remat_blocks: the G phase's backward runs each block's forward again, so its
+# flash forward (with lse, 3) and fused MoE soft forward (5) launch twice.
+REMAT_STEP_LAUNCHES = {**EXPECTED_STEP_LAUNCHES, "flash_attention_fwd": 9, "fused_moe_fwd": 15}
+# use_pallas=False: no kernel anywhere.
+DENSE_LAUNCHES = dict.fromkeys(EXPECTED_STEP_LAUNCHES, 0)
+GATHER_SPLIT = 1048  # phase 14's processed train split, 64x64 NHWC float32
+DCGAN_SAMPLES, DCGAN_BATCH, DCGAN_EPOCHS = 256, 64, 2
+PROTO_DIMS = (512, 256, 9)  # the reference router checkpoint's widths
+PROTO_SAMPLES = 1024
+
+
+def switch_cfg(**generator):
+    from moegan_tpu_torch.config import GeneratorConfig, TrainConfig
+
+    return TrainConfig(generator=GeneratorConfig(**generator))
+
+
+def remat_gradients(smi):
+    """One batch-4 step with and without remat_blocks, from the same weights,
+    batch and noise: Adam's first moments (the clipped gradients) of G and D in
+    relative L2 against a first run without remat, beside a second run
+    without remat. cuDNN's and grid_sample's backwards add in no fixed order."""
+    from moegan_tpu_torch.train.state import create_train_state
+    from moegan_tpu_torch.train.step import draw_noise, make_train_step
+
+    batch = synthetic_batch(4, 64, SEED + 30, "cpu")
+    mus = []
+    for remat in (False, False, True):
+        cfg = switch_cfg(remat_blocks=remat).replace(batch_size=4)
+        state = create_train_state(cfg, device="cuda", seed=SEED + 31)
+        noise = draw_noise(state.generator, 4, torch.Generator().manual_seed(SEED + 32),
+                           device="cpu")
+        state, _ = make_train_step(cfg)(state, batch, epoch0_schedule(cfg), noise=noise)
+        mus.append({"g": state.g_opt.mu.double().cpu(), "d": state.d_opt.mu.double().cpu()})
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+    row = {net: {"remat_vs_plain": rel(mus[2][net], mus[0][net]),
+                 "plain_vs_plain": rel(mus[1][net], mus[0][net])} for net in ("g", "d")}
+    print("remat_gradients " + json.dumps(row), flush=True)
+    for net, r in row.items():
+        check(r["remat_vs_plain"] <= 4 * r["plain_vs_plain"],
+              f"remat {net} gradients differ by {r['remat_vs_plain']}, more than 4x two runs "
+              f"without remat ({r['plain_vs_plain']})")
+    return row
+
+
+def dense_generator_phase(state_dict):
+    """The use_pallas=False generator's batch-16 call on the card against the CPU
+    float32 one (phase 5's limit, pinned routing), with no kernel launched."""
+    from moegan_tpu_torch.config import GeneratorConfig
+
+    reset_counts()
+    stats = generator_phase(GeneratorConfig(use_pallas=False), state_dict, n=N,
+                            label="dense_generator_vs_cpu")
+    counts = launch_counts()
+    check(counts == DENSE_LAUNCHES, f"use_pallas=False generator call launched {counts}")
+    return stats
+
+
+def native_gather_phase():
+    """(c) The port's g++ build of the batcher, timed; a batch-64 gather of the
+    processed 64x64 layout through each function, byte-equal to numpy, with the
+    native and numpy microseconds (median of 50)."""
+    from moegan_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    native.load_library()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 40)
+    src = np.clip(rng.standard_normal((GATHER_SPLIT, 64, 64, 3)), -1, 1).astype(np.float32)
+    idx = rng.permutation(GATHER_SPLIT)[:64]
+    flip = rng.random(64) < 0.5
+    mean = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
+    std = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+    def numpy_images():
+        out = src[idx]
+        out[flip] = out[flip][:, :, ::-1]
+        return out
+
+    cases = {
+        "gather_rows": (lambda: native.gather_rows(src, idx), lambda: src[idx]),
+        "gather_images": (lambda: native.gather_images(src, idx, flip), numpy_images),
+        "gather_normalize": (lambda: native.gather_normalize(src, idx, mean, std),
+                             lambda: (((src[idx] + 1.0) * 0.5 - mean) / std).astype(np.float32)),
+    }
+
+    def median_us(fn):
+        times = []
+        for _ in range(50):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e6)
+        return float(np.median(times))
+
+    row = {"build_s": build_s, "library": native.library_path().name, "batch": 64,
+           "source_shape": list(src.shape)}
+    for name, (nat, ref) in cases.items():
+        check(nat().tobytes() == ref().tobytes(), f"native {name} differs from numpy")
+        row[name] = {"native_us": median_us(nat), "numpy_us": median_us(ref)}
+    print("native_gather " + json.dumps(row), flush=True)
+    return row
+
+
+def profiling_phase(smi):
+    """(d) `trace` around 2 default training steps at batch 64 writes a Chrome
+    trace with the card's kernels; `device_memory_stats` has the JAX keys;
+    `MemoryMonitor.peak` is positive."""
+    from moegan_tpu_torch.train.state import create_train_state
+    from moegan_tpu_torch.train.step import make_train_step
+    from moegan_tpu_torch.utils.profiling import MemoryMonitor, device_memory_stats, trace
+
+    cfg = switch_cfg()
+    state = create_train_state(cfg, device="cuda", seed=SEED)
+    step = make_train_step(cfg)
+    batch = synthetic_batch(cfg.batch_size, 64, SEED + 3, "cuda")
+    noise = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    state, _ = step(state, batch, epoch0_schedule(cfg), generator=noise)  # warm-up
+    logdir = tempfile.mkdtemp(prefix="moegan_smoke_trace_")
+    try:
+        t0 = time.perf_counter()
+        with trace(logdir):
+            for _ in range(2):
+                state, _ = step(state, batch, epoch0_schedule(cfg), generator=noise)
+        traced_s = time.perf_counter() - t0
+        files = glob.glob(os.path.join(logdir, "*.json"))
+        check(len(files) == 1, f"trace wrote {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        trace_mb = os.path.getsize(files[0]) / 1e6
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    check(len(kernels) > 0, "the trace holds no CUDA kernel")
+    stats = device_memory_stats()
+    check(len(stats) == torch.cuda.device_count() and all(
+        set(s) == {"device", "bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+        and s["bytes_limit"] > 0 for s in stats), f"device_memory_stats: {stats}")
+    mon = MemoryMonitor(limit_fraction=0.9)
+    mon.step(0)
+    check(mon.peak > 0, f"MemoryMonitor.peak {mon.peak}")
+    row = {"traced_steps": 2, "traced_s": traced_s, "trace_mb": trace_mb,
+           "kernel_events": len(kernels), "kernel_device_ms_per_step": device_ms / 2,
+           "memory_stats": stats, "monitor_peak_gib": mon.peak / 2 ** 30, "card": smi}
+    print("profiling " + json.dumps(row), flush=True)
+    return row
+
+
+def dcgan_phase(smi):
+    """(e) `train_with_limited_resources` on 256 synthetic 64x64 images at batch
+    64 for 2 epochs on the card (ms/step by CUDA events); `generate_image_from_text`;
+    one batch-8 step on the card against the CPU float32 step on the same
+    weights, batch and z (losses within 5 %)."""
+    from moegan_tpu_torch.data.datasets import synthetic_dataset
+    from moegan_tpu_torch.models import dcgan
+
+    ds = synthetic_dataset(DCGAN_SAMPLES, 64, seed=SEED)
+    times = []
+    plain = dcgan.make_dcgan_train_step
+
+    def timed_make(*args):
+        step = plain(*args)
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*a, **kw)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            return out
+
+        return timed
+
+    dcgan.make_dcgan_train_step = timed_make
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="moegan_smoke_dcgan_") as ckpt:
+            (g, d), state, history = dcgan.train_with_limited_resources(
+                ds, epochs=DCGAN_EPOCHS, batch_size=DCGAN_BATCH, checkpoint_dir=ckpt,
+                device="cuda")
+            written = sorted(os.listdir(ckpt))
+    finally:
+        dcgan.make_dcgan_train_step = plain
+    wall = time.perf_counter() - t0
+    steps = DCGAN_EPOCHS * (DCGAN_SAMPLES // DCGAN_BATCH)
+    check(state.step == steps and len(times) == steps, f"dcgan ran {state.step} steps")
+    check(all(np.isfinite(v) for v in history["d_loss"] + history["g_loss"]),
+          f"dcgan losses {history}")
+    check(written == [f"dcgan_epoch_{i + 1}.msgpack" for i in range(DCGAN_EPOCHS)],
+          f"dcgan wrote {written}")
+    imgs = dcgan.generate_image_from_text(g, ds.text_embeddings[0], num_samples=4)
+    check(tuple(imgs.shape) == (4, 64, 64, 3) and bool(torch.isfinite(imgs).all())
+          and float(imgs.abs().max()) <= 1.0, f"dcgan images {tuple(imgs.shape)}")
+    # one batch-8 step, card against CPU float32, from the same weights and z
+    gen = torch.Generator().manual_seed(SEED + 50)
+    batch = {"image": ds.images[:8], "text": ds.text_embeddings[:8]}
+    z = torch.randn((8, dcgan.Z_DIM), generator=gen)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        g2, d2, st = dcgan.create_dcgan_state(seed=SEED + 51, device=dev)
+        _, m = dcgan.make_dcgan_train_step(g2, d2)(st, batch, z=z)
+        losses[dev] = {k: float(v) for k, v in m.items()}
+    row = {"steps": steps, "step_ms": times, "median_ms_steps_3_on": float(np.median(times[2:])),
+           "wall_s": wall, "history": history,
+           "batch8_losses_card_cpu": {k: [losses["cuda"][k], losses["cpu"][k]]
+                                      for k in losses["cpu"]}, "card": smi}
+    print("dcgan " + json.dumps(row), flush=True)
+    for k, (a, b) in row["batch8_losses_card_cpu"].items():
+        check(abs(a - b) <= 0.05 * abs(b), f"dcgan batch-8 {k}: card {a} cpu {b}")
+    return row
+
+
+def prototype_phase(smi):
+    """(f) `MixtureOfExperts(512, 256, 9)` on the card: `describe_selection` at
+    the defaults (75 samples, 200 burn-in); `train_moe_with_clusters` for 2
+    epochs on 1,024 synthetic 512-d embeddings in 9 clusters; the sample=False
+    forward against the CPU's within 1e-4."""
+    from moegan_tpu_torch.prototype.moe_wrapper import MixtureOfExperts
+    from moegan_tpu_torch.prototype.training import cluster_text_embeddings, train_moe_with_clusters
+
+    rng = np.random.default_rng(SEED + 60)
+    emb = rng.standard_normal((1, PROTO_DIMS[0])).astype(np.float32)
+    moe = MixtureOfExperts(*PROTO_DIMS, seed=SEED, device="cuda")
+    t0 = time.perf_counter()
+    text = moe.describe_selection(emb)
+    torch.cuda.synchronize()
+    hmc_s = time.perf_counter() - t0
+    check(text.startswith("Expert selection:") and "Selected experts:" in text,
+          f"describe_selection: {text!r}")
+    centers = rng.standard_normal((PROTO_DIMS[2], PROTO_DIMS[0])) * 0.5
+    labels = rng.integers(0, PROTO_DIMS[2], PROTO_SAMPLES)
+    data = (centers[labels] + 0.1 * rng.standard_normal((PROTO_SAMPLES, PROTO_DIMS[0])))
+    data = data.astype(np.float32)
+    t0 = time.perf_counter()
+    found, _ = cluster_text_embeddings(data, n_clusters=PROTO_DIMS[2], seed=SEED)
+    kmeans_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, history = train_moe_with_clusters(data, found, hidden_dim=PROTO_DIMS[1], epochs=2,
+                                         seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(all(np.isfinite(history["train_loss"])), f"prototype losses {history}")
+    x = torch.from_numpy(data[:64])
+    with torch.no_grad():
+        card = [v.cpu() for v in moe.gating(x.cuda(), sample=False)]
+        cpu_net = type(moe.gating)(*PROTO_DIMS)
+        cpu_net.load_state_dict({k: v.cpu() for k, v in moe.gating.state_dict().items()})
+        cpu = cpu_net(x, sample=False)
+    errs = {name: float((a - b).abs().max()) for name, a, b in
+            zip(("probs", "kl", "logits"), card, cpu)}
+    row = {"describe_selection_s": hmc_s, "chain_steps": moe.burn_in + moe.num_samples,
+           "kmeans_s": kmeans_s, "train_s": train_s, "history": history,
+           "mean_forward_max_abs_err": errs, "selection": text.splitlines(), "card": smi}
+    print("prototype " + json.dumps(row), flush=True)
+    for name, e in errs.items():
+        check(e <= 1e-4, f"prototype sample=False {name}: card against CPU {e} > 1e-4")
+    return row
+
+
+def switches_phase(smi, state_dict, default_row):
+    """Phase 15: (a) remat_blocks, (b) use_pallas=False, (c) the native gather,
+    (d) the profiling helpers, (e) the DCGAN baseline, (f) the prototype router."""
+    t0 = time.perf_counter()
+    out = {}
+    out["remat_launches"], remat_row = train_phase(smi, REMAT_STEP_LAUNCHES, "train_remat",
+                                                   switch_cfg(remat_blocks=True))
+    out["remat_gradients"] = remat_gradients(smi)
+    torch.cuda.empty_cache()
+    out["dense_generator"] = dense_generator_phase(state_dict)
+    out["dense_launches"], dense_row = train_phase(smi, DENSE_LAUNCHES, "train_dense",
+                                                   switch_cfg(use_pallas=False))
+    keys = ("median_ms_steps_3_5", "images_per_s", "peak_mem_gib")
+    side = {label: {k: row[k] for k in keys} for label, row in (
+        ("default", default_row), ("remat_blocks", remat_row), ("use_pallas_false", dense_row))}
+    print("switches_vs_default " + json.dumps({**side, "card": smi}), flush=True)
+    torch.cuda.empty_cache()
+    out["native_gather"] = native_gather_phase()
+    out["profiling"] = profiling_phase(smi)
+    torch.cuda.empty_cache()
+    out["dcgan"] = dcgan_phase(smi)
+    out["prototype"] = prototype_phase(smi)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
@@ -3002,7 +3321,7 @@ def main() -> None:
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    launches, _ = train_phase(smi)
+    launches, train_row = train_phase(smi)
     train_vs_cpu_phase()
     torch.cuda.empty_cache()
     combine_fwd_rows, combine_bwd_rows = combine_phase(dev, tfm)
@@ -3022,6 +3341,8 @@ def main() -> None:
     p13 = evaluation_phase(dev, smi, tfa, tfm)
     torch.cuda.empty_cache()
     p14 = mlops_phase(smi)
+    torch.cuda.empty_cache()
+    p15 = switches_phase(smi, state_dict, train_row)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -3129,8 +3450,14 @@ def main() -> None:
             # phase 14's main path: the 4 in-process trials (their threads' counts
             # may lose an update) and the managed job (4 steps, 31 validation batches)
             "mlops_launches": p14["launches"][name],
+            # phase 15: the 5 steps under remat_blocks, and the use_pallas=False
+            # generator call and 5 steps (every count 0)
+            "remat_launches": p15["remat_launches"][name],
+            "dense_launches": p15["dense_launches"][name],
             **extra.get(name, {}),
         })
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the result lines",
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,12 @@
 """Configuration (counterpart of moegan_tpu/config.py).
 
 `GeneratorConfig`, `DiscriminatorConfig`, `LossConfig`, `MeshConfig` and
-`TrainConfig` keep the JAX package's fields and defaults. The TPU-only
-fields (`use_pallas`, `remat_blocks`) are left out; `from_dict` skips them,
-and any other unknown key, in a JAX-written JSON. `tpu_flagship_config` is
+`TrainConfig` keep the JAX package's fields and defaults; `from_dict` skips
+a key the class does not have (`TrainConfig`'s `truncation_psi`, which no
+step reads). `GeneratorConfig.use_pallas=False` runs the generator without
+the kernels (plain attention at every T, the dense expert mixture, the
+plain LayerNorm); `remat_blocks` recomputes each generative block in the
+backward. `tpu_flagship_config` is
 the JAX package's wider preset and `coerce_hyperparameters` its
 string-to-type coercion of a hyperparameter dict, under the same names.
 """
@@ -59,6 +62,11 @@ class GeneratorConfig(_JsonMixin):
     mapping_layers: int = 4
     mapping_width: int = 512
     compute_dtype: str = "bfloat16"
+    # Recompute each generative block in the training backward instead of
+    # keeping its activations (torch.utils.checkpoint): less memory, more time.
+    remat_blocks: bool = False
+    # The hand-written kernels; False takes the plain PyTorch route everywhere.
+    use_pallas: bool = True
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "GeneratorConfig":

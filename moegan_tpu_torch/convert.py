@@ -20,7 +20,12 @@ The same two functions carry the CLIP towers (`models/clip.py`, a tree
 their dense kernels are transposed, the patch embedding's and the toy
 convs' HWIO kernels become OIHW, and the fused `qkv` projection stays fused
 ([in, 3W] -> [3W, in]); embeddings, `proj`, `text_projection` and
-`logit_scale` keep their layout.
+`logit_scale` keep their layout. They also carry the prototype's gating
+network (`prototype/gating.py`): its BayesianLinear mu/rho keep the JAX
+[in, out] layout and names, and its `text_projection` is a dense layer.
+
+The DCGAN baseline (`models/dcgan.py`) has its own pair, `dcgan_to_jax` and
+`dcgan_from_jax`, for its transposed-conv kernels and BatchNorm statistics.
 """
 
 from __future__ import annotations
@@ -103,3 +108,50 @@ def torch_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray
         out["/".join([*scope, leaf])] = np.ascontiguousarray(a)
     return out
 
+
+
+# --- the DCGAN baseline (models/dcgan.py) --------------------------------------------------
+# Its transposed convs carry flax's kernel [kh, kw, in, out], which flax applies
+# unflipped, as nn.ConvTranspose2d's [in, out, kh, kw] flipped in both spatial axes.
+
+
+def dcgan_to_jax(g_state_dict: Mapping[str, torch.Tensor],
+                 d_state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The DCGAN's state dicts -> {"g_params", "g_batch_stats", "d_params"}, each a
+    flat {"a/b": ndarray} in the JAX layout (moegan_tpu/models/dcgan.py)."""
+    out = {"g_params": {}, "g_batch_stats": {}, "d_params": {}}
+    for net, sd in (("g", g_state_dict), ("d", d_state_dict)):
+        for name, t in sd.items():
+            scope, leaf = name.split(".")
+            a = t.detach().float().cpu().numpy()
+            tree = "params"
+            if leaf in ("mean", "var"):
+                tree = "batch_stats"
+            elif leaf == "weight" and scope.startswith("convt"):
+                leaf, a = "kernel", a.transpose(2, 3, 0, 1)[::-1, ::-1]
+            elif leaf == "weight" and a.ndim == 4:
+                leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+            elif leaf == "weight" and a.ndim == 2:
+                leaf, a = "kernel", a.T
+            elif leaf == "weight":
+                leaf = "scale"
+            out[f"{net}_{tree}"][f"{scope}/{leaf}"] = np.ascontiguousarray(a)
+    return out
+
+
+def dcgan_from_jax(g_params: Mapping[str, Any], g_batch_stats: Mapping[str, Any],
+                   d_params: Mapping[str, Any]) -> tuple[dict, dict]:
+    """JAX DCGAN variables (nested or flat) -> (generator, discriminator) state dicts."""
+    out = ({}, {})
+    for i, tree in ((0, g_params), (0, g_batch_stats), (1, d_params)):
+        for key, a in flatten_params(tree).items():
+            scope, leaf = key.split("/")
+            if leaf == "kernel" and scope.startswith("convt"):
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif leaf == "kernel" and a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif leaf == "kernel":
+                a = a.T
+            leaf = {"kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+            out[i][f"{scope}.{leaf}"] = torch.from_numpy(np.array(a, np.float32, order="C"))
+    return out

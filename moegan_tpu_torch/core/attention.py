@@ -9,13 +9,18 @@ Self-attention uses one fused [D, 3D] QKV product sliced q|k|v on the last
 axis. For T >= 256 it runs through the flash-attention kernels on the card:
 `FlashAttentionFunction` (forward with lse, then the backward kernel) when
 grad is enabled, `flash_attention` (forward only, no lse) when not. Below
-that, plain attention with fp32 logits, probs cast to the compute dtype and
-PV accumulated in fp32. Cross-attention over one text
+that, and at every T with `use_pallas=False`, plain attention (`_sdpa`, JAX
+attention.py:139-156): fp32 logits, probs cast to the compute dtype and PV
+accumulated in fp32. With `use_pallas=False` and grad enabled it is
+recomputed in the backward (JAX's `jax.checkpoint`), so the fp32 [B, H, T,
+T] logits and probs at T = 4096 are not kept for it. Cross-attention over one text
 token is exactly the value projection broadcast over every query
 (`MOEGAN_CROSS_T1`, on by default in the JAX package), so norm2, wq/wk and
 bq/bk are kept as parameters for checkpoint parity but not computed. The
 norms are `FusedLayerNorm`, as in the JAX block: the LayerNorm kernels
-under `MOEGAN_FUSED_LN=1`, the plain version otherwise.
+under `MOEGAN_FUSED_LN=1` (never with `use_pallas=False`), the plain version
+otherwise. The block hands `use_pallas` to its norms, its self-attention and
+its MoE, as the JAX block does (attention.py:192-218).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from moegan_tpu_torch.core import inits
 from moegan_tpu_torch.core.modconv import ModulatedConv
@@ -34,15 +40,24 @@ from moegan_tpu_torch.ops.layernorm import FusedLayerNorm
 FLASH_MIN_T = 256
 
 
+def _sdpa(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor) -> torch.Tensor:
+    """Plain attention over [B, T, H, hd] in the compute dtype -> fp32 [B, T, H, hd]."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * (
+        1.0 / math.sqrt(qh.shape[-1]))
+    probs = torch.softmax(logits, dim=-1).to(qh.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), vh.float())
+
+
 class MultiHeadAttention(nn.Module):
     """torch.nn.MultiheadAttention-equivalent with the JAX package's [in, out] weights."""
 
     def __init__(self, dim: int, heads: int, compute_dtype=torch.bfloat16,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None, use_pallas: bool = True):
         super().__init__()
         gen = inits.default_generator(gen)
         self.dim, self.heads = dim, heads
         self.compute_dtype = compute_dtype
+        self.use_pallas = use_pallas
         for name in ("wq", "wk", "wv"):
             setattr(self, name, nn.Parameter(inits.xavier_uniform((dim, dim), gen)))
         for name in ("bq", "bk", "bv"):
@@ -68,14 +83,13 @@ class MultiHeadAttention(nn.Module):
         qh = y[..., :D].unflatten(-1, (H, hd))
         kh = y[..., D:2 * D].unflatten(-1, (H, hd))
         vh = y[..., 2 * D:].unflatten(-1, (H, hd))
-        if T >= FLASH_MIN_T and torch.is_grad_enabled():
-            out = FlashAttentionFunction.apply(qh, kh, vh)
-        elif T >= FLASH_MIN_T:
-            out = flash_attention(qh, kh, vh)
+        if self.use_pallas and T >= FLASH_MIN_T:
+            out = (FlashAttentionFunction.apply(qh, kh, vh) if torch.is_grad_enabled()
+                   else flash_attention(qh, kh, vh))
+        elif not self.use_pallas and torch.is_grad_enabled():
+            out = checkpoint(_sdpa, qh, kh, vh, use_reentrant=False)
         else:
-            logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * (1.0 / math.sqrt(hd))
-            probs = torch.softmax(logits, dim=-1).to(cd)
-            out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), vh.float())
+            out = _sdpa(qh, kh, vh)
         out = out.reshape(B, T, D).to(cd)
         return (out @ self.wo.to(cd) + self.bo.to(cd)).to(x.dtype)
 
@@ -83,21 +97,19 @@ class MultiHeadAttention(nn.Module):
 class AttentionBlock(nn.Module):
     def __init__(self, dim: int, text_dim: int = 512, latent_dim: int = 512, heads: int = 8,
                  num_experts: int = 4, router_hidden: int = 128,
-                 compute_dtype=torch.bfloat16, gen: torch.Generator | None = None):
+                 compute_dtype=torch.bfloat16, gen: torch.Generator | None = None,
+                 use_pallas: bool = True):
         super().__init__()
         gen = inits.default_generator(gen)
         cd = compute_dtype
         self.proj_in = ModulatedConv(dim, dim, 1, latent_dim, compute_dtype=cd, gen=gen)
-        self.norm1 = FusedLayerNorm(dim)
-        self.self_attn = MultiHeadAttention(dim, heads, cd, gen)
-        self.text_proj = nn.Linear(text_dim, dim)
-        with torch.no_grad():
-            self.text_proj.weight.copy_(inits.torch_linear_kernel((text_dim, dim), gen).t())
-            self.text_proj.bias.copy_(inits.torch_linear_bias((dim,), gen, text_dim))
-        self.norm2 = FusedLayerNorm(dim)
-        self.cross_attn = MultiHeadAttention(dim, heads, cd, gen)
-        self.norm3 = FusedLayerNorm(dim)
-        self.moe = SparseMoE(dim, latent_dim, num_experts, router_hidden, cd, gen)
+        self.norm1 = FusedLayerNorm(dim, use_pallas=use_pallas)
+        self.self_attn = MultiHeadAttention(dim, heads, cd, gen, use_pallas)
+        self.text_proj = inits.torch_linear(text_dim, dim, gen)
+        self.norm2 = FusedLayerNorm(dim, use_pallas=use_pallas)
+        self.cross_attn = MultiHeadAttention(dim, heads, cd, gen, use_pallas=False)
+        self.norm3 = FusedLayerNorm(dim, use_pallas=use_pallas)
+        self.moe = SparseMoE(dim, latent_dim, num_experts, router_hidden, cd, gen, use_pallas)
         self.proj_out = ModulatedConv(dim, dim, 1, latent_dim, compute_dtype=cd, gen=gen)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor, text_seq: torch.Tensor,

@@ -43,7 +43,8 @@ class GenerativeBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, text_dim: int = 512,
                  latent_dim: int = 512, upsample: bool = False, use_offset: bool = False,
                  heads: int = 8, num_experts: int = 4, router_hidden: int = 128,
-                 compute_dtype=torch.bfloat16, gen: torch.Generator | None = None):
+                 compute_dtype=torch.bfloat16, gen: torch.Generator | None = None,
+                 use_pallas: bool = True):
         super().__init__()
         gen = inits.default_generator(gen)
         self.upsample = upsample
@@ -51,7 +52,7 @@ class GenerativeBlock(nn.Module):
             in_channels, out_channels, use_offset, latent_dim, compute_dtype, gen)
         self.attn_block = AttentionBlock(
             out_channels, text_dim, latent_dim, heads, num_experts, router_hidden,
-            compute_dtype, gen)
+            compute_dtype, gen, use_pallas)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor, text_seq: torch.Tensor,
                 training: bool = False, annealing_factor: float | torch.Tensor = 1.0,

@@ -40,10 +40,29 @@ def torch_conv_kernel(shape, gen):
     return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
 
 
+def torch_linear(in_dim: int, out_dim: int, gen) -> torch.nn.Linear:
+    """An nn.Linear with torch's default init drawn from `gen` (as a flax Dense
+    with `torch_linear_kernel` and `torch_linear_bias`)."""
+    layer = torch.nn.Linear(in_dim, out_dim)
+    with torch.no_grad():
+        layer.weight.copy_(torch_linear_kernel((in_dim, out_dim), gen).t())
+        layer.bias.copy_(torch_linear_bias((out_dim,), gen, in_dim))
+    return layer
+
+
 def xavier_uniform(shape, gen):
     """Glorot uniform for a 2-D [in, out] kernel (flax xavier_uniform)."""
     bound = math.sqrt(6.0 / (shape[0] + shape[1]))
     return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
+
+
+def lecun_normal(shape, gen):
+    """flax's default kernel init: a normal truncated at +-2 std, scaled so its
+    variance is 1/fan_in, fan_in the product of all but the last (output) axis."""
+    fan_in = math.prod(shape[:-1])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=gen)
 
 
 def normal(shape, gen, std: float = 0.02):

@@ -1,5 +1,6 @@
 """Per-pixel sparse MoE FFN with a Bayesian router (counterpart of
-moegan_tpu/core/moe.py) through the fused kernels.
+moegan_tpu/core/moe.py), through the fused kernels or, with
+`use_pallas=False`, the dense mixture.
 
 `forward` is the JAX `_fused` glue (moe.py:184-226): router weights (the
 posterior means at eval, a reparameterised sample in training), nan_to_num
@@ -19,11 +20,20 @@ its own experts' FFNs with its columns of the probs (`moe_ffn_combine`,
 `MoECombineFunction` in training), and the partial sums are added over the
 expert group. The module then holds only its rank's slice of w1, b1, w2
 and b2 (`parallel.sharding.shard_module_`).
+
+With `use_pallas=False` the module is the JAX `router` + `_mixture` route
+(moe.py:84-93, :228-260): the fp32 router (sampled weights and soft routing
+in training, the means and the argmax one-hot at eval), then every expert's
+FFN on every token, [E, B, T, 4C] in the compute dtype with the exact-erf
+GELU, combined over E with fp32 accumulation. Under an expert mesh each rank
+mixes its own experts with its columns of the probs between `expert_enter`
+and `expert_combine`, as `_fused_sharded` does around the combine kernel.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from moegan_tpu_torch.core import inits
@@ -38,14 +48,30 @@ from moegan_tpu_torch.parallel.mesh import current_mesh
 from moegan_tpu_torch.parallel.sharding import expert_combine, expert_enter, expert_slice
 
 
+class SparseExpertFFN(nn.Module):
+    """One expert: Linear(d, 4d) -> exact GELU -> Linear(4d, d) (moe.py:33-50);
+    the layers carry flax's automatic names, Dense_0 and Dense_1."""
+
+    def __init__(self, dim: int, gen: torch.Generator | None = None):
+        super().__init__()
+        gen = inits.default_generator(gen)
+        self.Dense_0 = inits.torch_linear(dim, 4 * dim, gen)
+        self.Dense_1 = inits.torch_linear(4 * dim, dim, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_1(F.gelu(self.Dense_0(x), approximate="none"))
+
+
 class SparseMoE(nn.Module):
     def __init__(self, dim: int, text_dim: int, num_experts: int = 4, router_hidden: int = 128,
-                 compute_dtype=torch.bfloat16, gen: torch.Generator | None = None):
+                 compute_dtype=torch.bfloat16, gen: torch.Generator | None = None,
+                 use_pallas: bool = True):
         super().__init__()
         gen = inits.default_generator(gen)
         d, e = dim, num_experts
         self.num_experts = e
         self.compute_dtype = compute_dtype
+        self.use_pallas = use_pallas
         self.w1 = nn.Parameter(inits.torch_linear_kernel((e, d, 4 * d), gen))
         self.b1 = nn.Parameter(inits.torch_linear_bias((e, 4 * d), gen, d))
         self.w2 = nn.Parameter(inits.torch_linear_kernel((e, 4 * d, d), gen))
@@ -63,8 +89,14 @@ class SparseMoE(nn.Module):
         if training and eps is None:
             raise ValueError("a training forward needs the router noise eps")
         mesh = self._expert_mesh()
-        if mesh is not None:
-            out, probs = self._fused_sharded(x, w, training, annealing_factor, eps, mesh)
+        if not self.use_pallas or mesh is not None:
+            probs, _ = self.router(x, w, sampling=training, hard=not training,
+                                   annealing_factor=annealing_factor, eps=eps)
+            if not self.use_pallas:
+                out = (self._mixture(x, probs) if mesh is None
+                       else self._mixture_sharded(x, probs, mesh))
+            else:
+                out = self._fused_sharded(x, probs, training, mesh)
             kl = self.router.kl_divergence() if training else torch.zeros((), device=x.device)
             return out, kl, probs
         B, T, C = x.shape
@@ -92,22 +124,44 @@ class SparseMoE(nn.Module):
             return m
         return None
 
-    def _fused_sharded(self, x, w, training, annealing_factor, eps, mesh):
-        """Expert-parallel path: the full router on every rank, this rank's
-        experts' FFN and combine in the combine kernel, the sum over the
-        expert group. Returns (out [B, T, C], probs [B, T, E]) with the full probs."""
-        B, T, C = x.shape
-        E, cd = self.num_experts, self.compute_dtype
-        local = expert_slice(mesh, E)
+    def _local_experts(self, mesh) -> slice:
+        """This rank's slice of the experts, which must be the experts the module holds."""
+        local = expert_slice(mesh, self.num_experts)
         if self.w1.shape[0] != local.stop - local.start:
             raise ValueError(f"the MoE holds {self.w1.shape[0]} experts; this rank's slice of "
-                             f"{E} over {mesh.expert_size} ranks is {local}")
-        probs, _ = self.router(x, w, sampling=training, hard=not training,
-                               annealing_factor=annealing_factor, eps=eps)
+                             f"{self.num_experts} over {mesh.expert_size} ranks is {local}")
+        return local
+
+    def _fused_sharded(self, x, probs, training, mesh):
+        """Expert-parallel path: given the full router's probs (every rank
+        routes in full), this rank's experts' FFN and combine in the combine
+        kernel, then the sum over the expert group. Returns out [B, T, C]."""
+        B, T, C = x.shape
+        E, cd = self.num_experts, self.compute_dtype
+        local = self._local_experts(mesh)
         tokens = expert_enter(x.reshape(B * T, C).to(cd), mesh)
         pt = expert_enter(probs.reshape(B * T, E).float(), mesh)
         args = (tokens.contiguous(), pt[:, local].contiguous(), self.w1.to(cd), self.b1.float(),
                 self.w2.to(cd), self.b2.float())
         part = MoECombineFunction.apply(*args) if training else moe_ffn_combine(*args)
         out = expert_combine(part, mesh)
-        return out.reshape(B, T, C).to(x.dtype), probs
+        return out.reshape(B, T, C).to(x.dtype)
+
+    def _mixture(self, x: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+        """sum_e p_e * FFN_e(x) over the experts the module holds (moe.py:228-260),
+        in x's dtype. x [B, T, C]; probs [B, T, E_held]."""
+        cd = self.compute_dtype
+        h = torch.einsum("btc,ecf->ebtf", x.to(cd), self.w1.to(cd)) + self.b1.to(cd)[:, None, None]
+        h = F.gelu(h, approximate="none")
+        y = torch.einsum("ebtf,efc->ebtc", h, self.w2.to(cd)) + self.b2.to(cd)[:, None, None]
+        out = torch.einsum("bte,ebtc->btc", probs.to(cd).float(), y.float())
+        return out.to(x.dtype)
+
+    def _mixture_sharded(self, x, probs, mesh):
+        """The mixture under an expert mesh: this rank's experts (the module
+        holds only their weights) with their columns of the full probs,
+        summed over the expert group."""
+        local = self._local_experts(mesh)
+        part = self._mixture(expert_enter(x.float(), mesh),
+                             expert_enter(probs.float(), mesh)[..., local])
+        return expert_combine(part, mesh).to(x.dtype)

@@ -9,7 +9,8 @@ CHW, `_text_embeddings.npy`, `_captions.npy`), as the JAX package's
 (datasets.py:240-260), and `shapes_dataset` its coloured-shapes corpus
 (datasets.py:157-237), each the same numbers from the same seed. The
 processing pipeline that writes the artifacts is `data/pipeline.py`, its
-augmentation `data/augment.py`.
+augmentation `data/augment.py`. `EnhancedMSCOCODataset` (datasets.py:91)
+adds k-means pseudo-labels for the prototype router (`prototype/training.py`).
 """
 
 from __future__ import annotations
@@ -77,6 +78,56 @@ class ProcessedMSCOCODataset(ImageTextDataset):
         np.save(f"{prefix}_text_embeddings.npy", self.text_embeddings.astype(np.float32))
         if self.captions is not None:
             np.save(f"{prefix}_captions.npy", np.asarray(self.captions, object))
+
+
+@dataclass
+class EnhancedMSCOCODataset:
+    """A processed dataset with per-sample k-means expert pseudo-labels (and
+    optional cluster descriptions), serving (image, text_embedding,
+    cluster_label) (datasets.py:91-155)."""
+
+    base: ImageTextDataset  # a ProcessedMSCOCODataset carries captions
+    cluster_labels: np.ndarray  # [N] int
+    cluster_descriptions: Optional[list] = None
+
+    def __post_init__(self):
+        if len(self.cluster_labels) != len(self.base):
+            raise ValueError(f"{len(self.cluster_labels)} labels for {len(self.base)} samples")
+        self.cluster_labels = np.asarray(self.cluster_labels, np.int32)
+
+    @classmethod
+    def from_dataset(cls, base: ImageTextDataset, n_clusters: int = 5, seed: int = 42,
+                     clip_params=None) -> "EnhancedMSCOCODataset":
+        """Cluster the text embeddings into pseudo-labels and name the clusters
+        (by a CLIP pack's theme words when given, else by captions)."""
+        from moegan_tpu_torch.prototype.training import analyze_clusters, cluster_text_embeddings
+
+        labels, _ = cluster_text_embeddings(base.text_embeddings, n_clusters, seed)
+        descriptions = analyze_clusters(base.text_embeddings, labels, clip_params=clip_params,
+                                        captions=getattr(base, "captions", None))
+        return cls(base, labels, descriptions)
+
+    @property
+    def images(self) -> np.ndarray:
+        return self.base.images
+
+    @property
+    def text_embeddings(self) -> np.ndarray:
+        return self.base.text_embeddings
+
+    @property
+    def captions(self):
+        return getattr(self.base, "captions", None)
+
+    @property
+    def num_clusters(self) -> int:
+        return int(self.cluster_labels.max()) + 1 if len(self.cluster_labels) else 0
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getitem__(self, idx):
+        return self.images[idx], self.text_embeddings[idx], self.cluster_labels[idx]
 
 
 def synthetic_dataset(n: int = 64, resolution: int = 16, seed: int = 0,

@@ -2,11 +2,12 @@
 
 `BatchLoader` shuffles each epoch with `np.random.default_rng(seed +
 epoch)`, as the JAX loader does, drops the last partial batch, and
-assembles numpy batches on a background thread. It gathers rows with
-numpy; the JAX package's native multithreaded batcher (`native/`, through
-ctypes) is not ported yet. `prefetch_to_device` keeps the next batch on
-its way to the device while the current one computes: pinned host memory,
-a non-blocking copy, and, under a mesh, only this rank's data slice.
+assembles numpy batches on a background thread through the native
+multithreaded gather (`data/native.py`, C++ through ctypes, as JAX
+loader.py:57-66), which raises if its library does not build; an error on
+that thread is raised in the consumer. `prefetch_to_device` keeps the next
+batch on its way to the device while the current one computes: pinned host
+memory, a non-blocking copy, and, under a mesh, only this rank's data slice.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from moegan_tpu_torch.data import native
 from moegan_tpu_torch.parallel.sharding import ShardedBatch, batch_sharding
 
 
@@ -48,14 +50,18 @@ class BatchLoader:
                     if stop.is_set():
                         return
                     idx = order[s * self.batch_size:(s + 1) * self.batch_size]
-                    q.put({"image": np.ascontiguousarray(self.dataset.images[idx]),
-                           "text": np.ascontiguousarray(self.dataset.text_embeddings[idx])})
+                    q.put({"image": native.gather_rows(self.dataset.images, idx),
+                           "text": native.gather_rows(self.dataset.text_embeddings, idx)})
+            except BaseException as e:  # handed to the consumer, which raises it
+                q.put(e)
             finally:
                 q.put(None)
 
         threading.Thread(target=worker, daemon=True).start()
         try:
             while (item := q.get()) is not None:
+                if isinstance(item, BaseException):
+                    raise item
                 yield item
         finally:
             stop.set()

@@ -41,6 +41,20 @@ def discriminator_loss(real_pred, fake_pred, mismatched_pred,
             + F.softplus(mismatched_pred).mean())
 
 
+def r1_from_input_grad(grad_real: torch.Tensor, r1_gamma: float) -> torch.Tensor:
+    """(gamma / 2) * mean over the batch of ||dD/dx||^2, from dD/dx [B, H, W, C]."""
+    return (r1_gamma / 2.0) * grad_real.float().square().sum(dim=(1, 2, 3)).mean()
+
+
+def r1_penalty(d_apply, real_images: torch.Tensor, r1_gamma: float) -> torch.Tensor:
+    """R1 gradient penalty (gan.py:46-57): (gamma / 2) * E[||dD(x)/dx||^2] at the
+    real images, `d_apply` mapping images to logits [B]. The input gradient is
+    taken with create_graph, so the penalty differentiates into D's parameters."""
+    x = real_images.detach().requires_grad_(True)
+    (grad,) = torch.autograd.grad(d_apply(x).sum(), x, create_graph=True)
+    return r1_from_input_grad(grad, r1_gamma)
+
+
 def cv_balance(probs: torch.Tensor, mesh=None) -> torch.Tensor:
     """Coefficient-of-variation load balance of one block's routing [..., E]:
     unbiased std, times E, clamped to [0, 10], NaN -> 0 (gan.py:59-76)."""
@@ -100,6 +114,12 @@ def _global_mean(rows, mesh) -> torch.Tensor:
     sums = data_sum(torch.stack([r.sum(dim=0) for r in rows]), mesh)
     return sums / torch.tensor([float(r.shape[0] * mesh.data_size) for r in rows],
                                device=sums.device)[:, None]
+
+
+def expert_utilization(routing_probs) -> torch.Tensor:
+    """[E] mean routing probability of each expert in the last block (gan.py:136-140)."""
+    last = routing_probs[-1].float()
+    return last.reshape(-1, last.shape[-1]).mean(dim=0)
 
 
 def expert_utilization_per_block(routing_probs, mesh=None) -> torch.Tensor:

@@ -12,6 +12,13 @@ Eval (serving) uses the mean router weights and hard routing, and its KL is
 0. Training (`training=True`) samples every router's weights, routes soft,
 anneals the router temperature by `annealing_factor`, and returns the sum of
 the blocks' router KLs (generator.py:44-152).
+
+`config.use_pallas` goes to every block (False: no kernel anywhere). With
+`config.remat_blocks`, a training forward with grad enabled runs each
+generative block under `torch.utils.checkpoint` (JAX `nn.remat`,
+generator.py:122-124): the backward runs the block's forward again, with
+the same router noise, which is an argument; nothing in a block draws
+random numbers.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from moegan_tpu_torch.config import GeneratorConfig
 from moegan_tpu_torch.core import inits
@@ -36,14 +44,6 @@ class GeneratorOutput(NamedTuple):
     routing: tuple  # per-block routing probs [B, T_r, E]
 
 
-def _linear(in_dim: int, out_dim: int, gen: torch.Generator) -> nn.Linear:
-    layer = nn.Linear(in_dim, out_dim)
-    with torch.no_grad():
-        layer.weight.copy_(inits.torch_linear_kernel((in_dim, out_dim), gen).t())
-        layer.bias.copy_(inits.torch_linear_bias((out_dim,), gen, in_dim))
-    return layer
-
-
 class AuroraGenerator(nn.Module):
     def __init__(self, config: GeneratorConfig = GeneratorConfig(),
                  gen: torch.Generator | None = None):
@@ -52,12 +52,12 @@ class AuroraGenerator(nn.Module):
         cfg = self.config = config
         cd = self.compute_dtype = getattr(torch, cfg.compute_dtype)
         td = cfg.text_embedding_dim
-        self.text_proj_1 = _linear(td, td, gen)
+        self.text_proj_1 = inits.torch_linear(td, td, gen)
         self.text_proj_ln = LayerNorm(td)
-        self.text_proj_2 = _linear(td, td, gen)
+        self.text_proj_2 = inits.torch_linear(td, td, gen)
         in_dim = cfg.latent_dim + td
         for i in range(cfg.mapping_layers):
-            self.add_module(f"mapping_{i}", _linear(in_dim, cfg.mapping_width, gen))
+            self.add_module(f"mapping_{i}", inits.torch_linear(in_dim, cfg.mapping_width, gen))
             in_dim = cfg.mapping_width
         self.constant = nn.Parameter(torch.randn((1, 4, 4, cfg.channels[4]), generator=gen))
         in_ch = cfg.channels[4]
@@ -67,7 +67,7 @@ class AuroraGenerator(nn.Module):
                 in_ch, out_ch, td, cfg.mapping_width, upsample=r > 4,
                 use_offset=r <= cfg.offset_max_resolution, heads=cfg.heads_for(out_ch),
                 num_experts=cfg.num_experts, router_hidden=cfg.router_hidden,
-                compute_dtype=cd, gen=gen,
+                compute_dtype=cd, gen=gen, use_pallas=cfg.use_pallas,
             ))
             if r >= cfg.rgb_min_resolution:
                 self.add_module(f"to_rgb_{r}", ModulatedConv(
@@ -110,11 +110,16 @@ class AuroraGenerator(nn.Module):
             w = mean_latent + psi * (w - mean_latent)
 
         x = self.constant.expand(B, 4, 4, cfg.channels[4]).to(self.compute_dtype)
+        remat = cfg.remat_blocks and training and torch.is_grad_enabled()
         kls, routings, rgbs = [], [], {}
         for r in cfg.resolutions():
             eps = router_eps[r] if training else None
-            x, kl, probs = getattr(self, f"gen_block_{r}")(
-                x, w, text_seq, training, annealing_factor, eps)
+            block = getattr(self, f"gen_block_{r}")
+            if remat:
+                x, kl, probs = checkpoint(block, x, w, text_seq, training, annealing_factor, eps,
+                                          use_reentrant=False)
+            else:
+                x, kl, probs = block(x, w, text_seq, training, annealing_factor, eps)
             kls.append(kl)
             routings.append(probs)
             if r >= cfg.rgb_min_resolution:

@@ -237,9 +237,14 @@ class LayerNorm(nn.Module):
 
 class FusedLayerNorm(LayerNorm):
     """The JAX `FusedLayerNorm` (fused_layernorm.py:185): the kernels under
-    `MOEGAN_FUSED_LN=1`, read at call time, else the plain `layer_norm`."""
+    `MOEGAN_FUSED_LN=1`, read at call time, else the plain `layer_norm`.
+    With `use_pallas=False` always the plain `layer_norm`, whatever the flag."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, use_pallas: bool = True):
+        super().__init__(dim, eps)
+        self.use_pallas = use_pallas
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if os.environ.get("MOEGAN_FUSED_LN", "0") == "1":
+        if self.use_pallas and os.environ.get("MOEGAN_FUSED_LN", "0") == "1":
             return FusedLayerNormFunction.apply(x, self.weight, self.bias, self.eps)
         return layer_norm(x, self.weight, self.bias, self.eps)

@@ -38,7 +38,7 @@ from moegan_tpu_torch.config import TrainConfig
 from moegan_tpu_torch.data.loader import BatchLoader, prefetch_to_device
 from moegan_tpu_torch.losses.gan import kl_annealing_factor, temperature_factor
 from moegan_tpu_torch.parallel.api import setup_distributed_training
-from moegan_tpu_torch.train.state import TrainState, create_train_state, sharded_mask
+from moegan_tpu_torch.train.state import TrainState, count_params, create_train_state
 from moegan_tpu_torch.train.step import make_eval_step, make_train_step
 from moegan_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from moegan_tpu_torch.utils.metrics import EMAMeter, MetricLogger
@@ -48,13 +48,6 @@ from moegan_tpu_torch.utils.profiling import MemoryMonitor
 def noise_generator(device, seed: int, index: int) -> torch.Generator:
     """The generator of one step's noise: seeded by (seed, index), the same on every rank."""
     return torch.Generator(device=device).manual_seed((seed << 32) | index)
-
-
-def count_params(module: torch.nn.Module, mesh=None) -> int:
-    """Parameters of the whole (unsharded) module."""
-    scale = 1 if mesh is None else mesh.expert_size
-    return sum(p.numel() * (scale if s else 1)
-               for p, s in zip(module.parameters(), sharded_mask(module, mesh)))
 
 
 def _world_size() -> int:

@@ -181,6 +181,14 @@ def sharded_mask(module: torch.nn.Module, mesh: Mesh | None) -> list[bool]:
             for n, _ in module.named_parameters()]
 
 
+def count_params(module: torch.nn.Module, mesh: Mesh | None = None) -> int:
+    """Parameters of the whole (unsharded) module (JAX state.py:179); under a
+    mesh, each expert-sharded tensor counts for the whole expert group."""
+    scale = 1 if mesh is None else mesh.expert_size
+    return sum(p.numel() * (scale if s else 1)
+               for p, s in zip(module.parameters(), sharded_mask(module, mesh)))
+
+
 def create_train_state(cfg: TrainConfig, device="cuda", seed: int | None = None,
                        mesh: Mesh | None = None) -> TrainState:
     """G and D from the port's seeded initialisers (`seed`, default cfg.seed) on

@@ -51,6 +51,7 @@ from moegan_tpu_torch.losses.gan import (
     expert_utilization_per_block,
     generator_loss,
     moe_balance_loss,
+    r1_from_input_grad,
 )
 from moegan_tpu_torch.models.generator import AuroraGenerator
 from moegan_tpu_torch.parallel.mesh import maybe_mesh_context
@@ -156,7 +157,7 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
             real_in = real.detach().requires_grad_(True)
             real_pred = disc(real_in, text)
             (grad_real,) = torch.autograd.grad(real_pred.sum(), real_in, create_graph=True)
-            r1 = (lcfg.r1_gamma / 2.0) * grad_real.float().square().sum(dim=(1, 2, 3)).mean()
+            r1 = r1_from_input_grad(grad_real, lcfg.r1_gamma)
             if shared:
                 fake = out.image.detach()
             else:

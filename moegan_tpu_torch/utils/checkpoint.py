@@ -131,6 +131,12 @@ def save_generator_params(path: str, state_dict: Mapping[str, torch.Tensor], *,
     flat = torch_to_jax(state_dict)
     if wrapped:
         flat = {f"generator/{k}": v for k, v in flat.items()}
+    save_jax_params(path, flat)
+
+
+def save_jax_params(path: str, flat: Mapping[str, np.ndarray]) -> None:
+    """A flat {"a/b/c": ndarray} tree in the JAX layout: the nested tree as flax
+    msgpack for `.msgpack`, the "/"-joined keys for `.npz`."""
     if path.endswith(".npz"):
         np.savez(path, **flat)
     elif path.endswith(".msgpack"):

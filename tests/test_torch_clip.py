@@ -24,7 +24,7 @@ from moegan_tpu.models import bpe as jax_bpe
 from moegan_tpu.models import clip_jax
 from moegan_tpu.models import toy_clip as jax_toy
 from moegan_tpu_torch.convert import torch_to_jax
-from moegan_tpu_torch.losses import clip_loss
+from moegan_tpu_torch.losses.clip_loss import clip_score, multi_level_clip_loss
 from moegan_tpu_torch.models import bpe, clip, toy_clip
 from tests.torch_helpers import randn, t, unflatten
 
@@ -137,8 +137,8 @@ def test_full_towers_match_jax(towers):
 def test_full_tower_losses_match_jax(towers):
     taps = {r: t(x) for r, x in towers["taps"].items()}
     with torch.no_grad():
-        got = clip_loss.multi_level_clip_loss(towers["model"], taps, t(towers["text_emb"]))
-        score = clip_loss.clip_score(towers["model"], taps[64], t(towers["text_emb"]))
+        got = multi_level_clip_loss(towers["model"], taps, t(towers["text_emb"]))
+        score = clip_score(towers["model"], taps[64], t(towers["text_emb"]))
     assert set(got) == set(towers["losses"])
     for r, v in got.items():
         assert abs(float(v) - towers["losses"][r]) <= 1e-5, (r, float(v), towers["losses"][r])
@@ -207,9 +207,9 @@ def test_toy_towers_and_losses_match_jax(toy):
     want = jax_multi_level({"toy": params}, taps, text_emb)
     want_score = jax_clip_score({"toy": params}, taps[32], text_emb)
     with torch.no_grad():
-        got = clip_loss.multi_level_clip_loss(pack, {r: t(x) for r, x in taps.items()},
+        got = multi_level_clip_loss(pack, {r: t(x) for r, x in taps.items()},
                                               t(text_emb))
-        score = clip_loss.clip_score(pack, t(taps[32]), t(text_emb))
+        score = clip_score(pack, t(taps[32]), t(text_emb))
         enc = model.encode_text(PROMPTS).numpy()
         feats = model.image_features(t(taps[32])).numpy()
     for r in taps:

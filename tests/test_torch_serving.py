@@ -228,12 +228,12 @@ def test_port_imports_no_jax():
     """Every module of the port (the training, distributed, evaluation and
     MLOps slices' included), chip_smoke.py, the port's profile scripts and the
     helper module that the distributed tests spawn their ranks from import
-    with jax, flax, optax, msgpack, orbax, moegan_tpu, PIL and matplotlib
-    blocked (the card's machine has neither PIL nor matplotlib)."""
+    with jax, flax, optax, msgpack, orbax, moegan_tpu, PIL, matplotlib and
+    sklearn blocked (the card's machine has no PIL, matplotlib or sklearn)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'orbax', 'moegan_tpu', 'PIL',\n"
-        "          'matplotlib'):\n"
+        "          'matplotlib', 'sklearn'):\n"
         "    sys.modules[m] = None\n"
         "import moegan_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'moegan_tpu_torch.')]\n"
@@ -270,6 +270,10 @@ def test_port_imports_no_jax():
             "moegan_tpu_torch.cli.job_train", "moegan_tpu_torch.hpo.search",
             "moegan_tpu_torch.orchestration.flags", "moegan_tpu_torch.orchestration.jobs",
             "moegan_tpu_torch.orchestration.pipeline"} <= names
+    assert {"moegan_tpu_torch.data.native", "moegan_tpu_torch.models.dcgan",
+            "moegan_tpu_torch.prototype.bayesian", "moegan_tpu_torch.prototype.gating",
+            "moegan_tpu_torch.prototype.moe_wrapper", "moegan_tpu_torch.prototype.training",
+            "moegan_tpu_torch.prototype.testing", "moegan_tpu_torch.prototype.convert"} <= names
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

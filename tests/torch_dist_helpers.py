@@ -108,7 +108,7 @@ def mesh_info(rank, world_size, expert_parallelism):
 
 
 def sharded_moe(rank, world_size, module_args, state_dict, x, w, eps, annealing, dout, dprobs,
-                kl_weight):
+                kl_weight, use_pallas=True):
     """The expert-sharded SparseMoE at (data 1 x expert world_size): the eval
     forward, and a training forward and backward of
     sum(out * dout) + sum(probs * dprobs) + kl_weight * kl.
@@ -118,7 +118,7 @@ def sharded_moe(rank, world_size, module_args, state_dict, x, w, eps, annealing,
     from moegan_tpu_torch.parallel.sharding import gather_full, shard_module_
 
     mesh = create_mesh(world_size, world_size)
-    m = SparseMoE(*module_args, compute_dtype=torch.float32)
+    m = SparseMoE(*module_args, compute_dtype=torch.float32, use_pallas=use_pallas)
     m.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
     # The partition rules name a MoE by its scope, as in a generator.
     holder = torch.nn.Module()
