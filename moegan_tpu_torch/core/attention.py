@@ -21,6 +21,11 @@ norms are `FusedLayerNorm`, as in the JAX block: the LayerNorm kernels
 under `MOEGAN_FUSED_LN=1` (never with `use_pallas=False`), the plain version
 otherwise. The block hands `use_pallas` to its norms, its self-attention and
 its MoE, as the JAX block does (attention.py:192-218).
+
+The block's spans (`utils.profiling`): `<span_name>.self_attn` (the QKV product,
+attention, the output projection), `<span_name>.cross_attn` (the text projection
+and the broadcast value projection) and `<span_name>.moe` (router and experts);
+proj_in, proj_out, the norms and the residual adds are its parent's own time.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from moegan_tpu_torch.core.modconv import ModulatedConv
 from moegan_tpu_torch.core.moe import SparseMoE
 from moegan_tpu_torch.ops.flash_attention import FlashAttentionFunction, flash_attention
 from moegan_tpu_torch.ops.layernorm import FusedLayerNorm
+from moegan_tpu_torch.utils.profiling import span
 
 FLASH_MIN_T = 256
 
@@ -98,10 +104,11 @@ class AttentionBlock(nn.Module):
     def __init__(self, dim: int, text_dim: int = 512, latent_dim: int = 512, heads: int = 8,
                  num_experts: int = 4, router_hidden: int = 128,
                  compute_dtype=torch.bfloat16, gen: torch.Generator | None = None,
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, span_name: str = "moegan.g.block"):
         super().__init__()
         gen = inits.default_generator(gen)
         cd = compute_dtype
+        self._span = {k: f"{span_name}.{k}" for k in ("self_attn", "cross_attn", "moe")}
         self.proj_in = ModulatedConv(dim, dim, 1, latent_dim, compute_dtype=cd, gen=gen)
         self.norm1 = FusedLayerNorm(dim, use_pallas=use_pallas)
         self.self_attn = MultiHeadAttention(dim, heads, cd, gen, use_pallas)
@@ -121,11 +128,18 @@ class AttentionBlock(nn.Module):
         """
         B, Hh, Ww, C = x.shape
         tokens = self.proj_in(x, w).reshape(B, Hh * Ww, C)
-        tokens = tokens + self.self_attn.self_attention(self.norm1(tokens))
-        tproj = self.text_proj(text_seq)
-        # norm2 feeds only the cross-attention query, which a length-1
-        # key sequence ignores; the JAX package's compiler drops it too.
-        tokens = tokens + self.cross_attn.cross_single(tokens, tproj)
-        moe_out, kl, probs = self.moe(self.norm3(tokens), w, training, annealing_factor, eps)
+        normed = self.norm1(tokens)
+        with span(self._span["self_attn"]):
+            attended = self.self_attn.self_attention(normed)
+        tokens = tokens + attended
+        with span(self._span["cross_attn"]):
+            tproj = self.text_proj(text_seq)
+            # norm2 feeds only the cross-attention query, which a length-1
+            # key sequence ignores; the JAX package's compiler drops it too.
+            crossed = self.cross_attn.cross_single(tokens, tproj)
+        tokens = tokens + crossed
+        normed = self.norm3(tokens)
+        with span(self._span["moe"]):
+            moe_out, kl, probs = self.moe(normed, w, training, annealing_factor, eps)
         tokens = tokens + moe_out
         return self.proj_out(tokens.reshape(B, Hh, Ww, C), w), kl, probs

@@ -2,7 +2,9 @@
 
 ConvolutionBlock = two MTMs plus a skip (1x1 modulated conv when the channel
 count changes). GenerativeBlock = optional x2 bilinear upsample ->
-ConvolutionBlock -> AttentionBlock.
+ConvolutionBlock -> AttentionBlock. A generative block's spans
+(`utils.profiling`) are `<span_name>.upsample` and `<span_name>.conv`, then the
+attention block's, under the generator's `moegan.g.r{r}`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from moegan_tpu_torch.core.attention import AttentionBlock
 from moegan_tpu_torch.core.modconv import ModulatedConv
 from moegan_tpu_torch.core.mtm import ModulatedTransformationModule
 from moegan_tpu_torch.core.upsample import upsample2x_bilinear
+from moegan_tpu_torch.utils.profiling import span
 
 
 class ConvolutionBlock(nn.Module):
@@ -44,21 +47,24 @@ class GenerativeBlock(nn.Module):
                  latent_dim: int = 512, upsample: bool = False, use_offset: bool = False,
                  heads: int = 8, num_experts: int = 4, router_hidden: int = 128,
                  compute_dtype=torch.bfloat16, gen: torch.Generator | None = None,
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, span_name: str = "moegan.g.block"):
         super().__init__()
         gen = inits.default_generator(gen)
         self.upsample = upsample
+        self._span = {"upsample": f"{span_name}.upsample", "conv": f"{span_name}.conv"}
         self.conv_block = ConvolutionBlock(
             in_channels, out_channels, use_offset, latent_dim, compute_dtype, gen)
         self.attn_block = AttentionBlock(
             out_channels, text_dim, latent_dim, heads, num_experts, router_hidden,
-            compute_dtype, gen, use_pallas)
+            compute_dtype, gen, use_pallas, span_name=span_name)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor, text_seq: torch.Tensor,
                 training: bool = False, annealing_factor: float | torch.Tensor = 1.0,
                 eps=None):
         """Returns (x [B, H, W, C], router KL, routing probs [B, T, E])."""
         if self.upsample:
-            x = upsample2x_bilinear(x)
-        return self.attn_block(self.conv_block(x, w), w, text_seq, training, annealing_factor,
-                               eps)
+            with span(self._span["upsample"]):
+                x = upsample2x_bilinear(x)
+        with span(self._span["conv"]):
+            x = self.conv_block(x, w)
+        return self.attn_block(x, w, text_seq, training, annealing_factor, eps)

@@ -8,6 +8,10 @@ loader.py:57-66), which raises if its library does not build; an error on
 that thread is raised in the consumer. `prefetch_to_device` keeps the next
 batch on its way to the device while the current one computes: pinned host
 memory, a non-blocking copy, and, under a mesh, only this rank's data slice.
+
+Spans (`utils.profiling`): `moegan.loader.gather` on the worker thread (both
+gathers of a batch, host only), `moegan.loader.wait` (the consumer's wait
+for the queue) and `moegan.loader.to_device` (a batch's pin and copies).
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ import torch
 
 from moegan_tpu_torch.data import native
 from moegan_tpu_torch.parallel.sharding import ShardedBatch, batch_sharding
+from moegan_tpu_torch.utils.profiling import span
+
+SPAN = {k: f"moegan.loader.{k}" for k in ("gather", "wait", "to_device")}
 
 
 class BatchLoader:
@@ -50,8 +57,10 @@ class BatchLoader:
                     if stop.is_set():
                         return
                     idx = order[s * self.batch_size:(s + 1) * self.batch_size]
-                    q.put({"image": native.gather_rows(self.dataset.images, idx),
-                           "text": native.gather_rows(self.dataset.text_embeddings, idx)})
+                    with span(SPAN["gather"], device=False):
+                        item = {"image": native.gather_rows(self.dataset.images, idx),
+                                "text": native.gather_rows(self.dataset.text_embeddings, idx)}
+                    q.put(item)
             except BaseException as e:  # handed to the consumer, which raises it
                 q.put(e)
             finally:
@@ -59,7 +68,11 @@ class BatchLoader:
 
         threading.Thread(target=worker, daemon=True).start()
         try:
-            while (item := q.get()) is not None:
+            while True:
+                with span(SPAN["wait"], device=False):
+                    item = q.get()
+                if item is None:
+                    break
                 if isinstance(item, BaseException):
                     raise item
                 yield item
@@ -79,11 +92,12 @@ def prefetch_to_device(iterator, device, *, mesh=None):
 
     def put(batch):
         out = {}
-        for k, v in batch.items():
-            t = local(torch.as_tensor(v))
-            if pin:
-                t = t.pin_memory()
-            out[k] = t.to(device, non_blocking=True)
+        with span(SPAN["to_device"]):
+            for k, v in batch.items():
+                t = local(torch.as_tensor(v))
+                if pin:
+                    t = t.pin_memory()
+                out[k] = t.to(device, non_blocking=True)
         return ShardedBatch(out) if mesh is not None else out
 
     buf = []

@@ -7,7 +7,8 @@ caller that needs the JAX package's images passes z to `sample_raw`.
 String prompts are encoded by the tower pack's text tower (`encode_text`):
 the CLIP towers of `models.clip.load_clip_params` unless another pack (a
 toy pack) is given. `sample_aurora_gan` is the functional form over a
-generator file's flat parameters.
+generator file's flat parameters. `sample_raw` is the root span
+`moegan.sample` (`utils.profiling`), with the generator's spans under it.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ import torch
 from moegan_tpu_torch import resolve_device
 from moegan_tpu_torch.config import GeneratorConfig
 from moegan_tpu_torch.models.generator import AuroraGenerator
+from moegan_tpu_torch.utils.profiling import span
+
+SPAN = "moegan.sample"
 
 
 def is_string_prompt(prompt) -> bool:
@@ -57,11 +61,12 @@ class Sampler:
         """One dispatch over a pre-assembled batch: z [N, latent], text_emb [N, emb],
         psi [N] -> (images [N, R, R, 3] in [-1, 1], routing tuple of [N, T_r, E])."""
         dev = self.device
-        z = torch.as_tensor(np.asarray(z, np.float32)).to(dev)
-        text_emb = torch.as_tensor(np.asarray(text_emb, np.float32)).to(dev)
-        psi = torch.as_tensor(np.asarray(psi, np.float32)).to(dev)
-        out = self.gen(z, text_emb, truncation_psi=psi)
-        return out.image.clamp(-1.0, 1.0), out.routing
+        with span(SPAN):
+            z = torch.as_tensor(np.asarray(z, np.float32)).to(dev)
+            text_emb = torch.as_tensor(np.asarray(text_emb, np.float32)).to(dev)
+            psi = torch.as_tensor(np.asarray(psi, np.float32)).to(dev)
+            out = self.gen(z, text_emb, truncation_psi=psi)
+            return out.image.clamp(-1.0, 1.0), out.routing
 
     @torch.inference_mode()
     def __call__(self, prompt, num_samples: int = 1, truncation_psi: float = 0.7,

@@ -5,7 +5,8 @@ Same request/response schema and endpoints as the JAX package:
 POST /generate {text, num_samples<=4, truncation_psi, seed?} -> {request_id};
 GET /poll?request_id -> {status, data}; GET /metrics; GET /healthz. A
 `MicroBatcher` coalesces up to 4 concurrent requests x 4 samples into one
-generator call (batch 16; a lone request runs at batch 4).
+generator call (batch 16; a lone request runs at batch 4); /metrics adds its
+counters under `batcher` (`MicroBatcher.stats`).
 
 `text` is a prompt string (encoded by the CLIP text tower, loaded at
 startup: `CLIP_WEIGHTS_PATH`'s converted `.npz`, else the random init) or a
@@ -46,8 +47,10 @@ from moegan_tpu_torch.config import GeneratorConfig
 from moegan_tpu_torch.infer.fid import FIDEvaluator
 from moegan_tpu_torch.infer.png import encode_png
 from moegan_tpu_torch.infer.sample import Sampler, expert_utilization_stats, is_string_prompt
+from moegan_tpu_torch.utils import profiling
 
 MAX_NUM_SAMPLES = 4
+DISPATCH_SPAN = "moegan.serve.dispatch"
 
 _SEED_BASE = int.from_bytes(os.urandom(4), "little")
 _SEED_COUNTER = itertools.count()
@@ -99,6 +102,12 @@ class MicroBatcher:
     slots * samples_per_req images, each request's z from its seed and a
     per-sample psi vector. Unused slots repeat slot 0 and are discarded. A
     lone request runs at its own batch (samples_per_req).
+
+    A dispatch is the root span `moegan.serve.dispatch` (`utils.profiling`);
+    every dispatch adds to the counters `serve.requests` and
+    `serve.queue_wait_s` (each request's wait from `submit` to the start of
+    its dispatch), and keeps its call time and its requests' waits for
+    `stats()`.
     """
 
     def __init__(self, sampler: Sampler, slots: int = 4,
@@ -111,6 +120,7 @@ class MicroBatcher:
         self.dispatches = 0
         self.requests = 0
         self.dispatch_ms: collections.deque = collections.deque(maxlen=64)  # recent call times
+        self.queue_wait_ms: collections.deque = collections.deque(maxlen=256)  # recent waits
         self._q: queue.Queue = queue.Queue()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -122,8 +132,19 @@ class MicroBatcher:
             raise ValueError(f"text embedding must have {self.emb_dim} dims, got {emb.shape[0]}")
         ev = threading.Event()
         box: dict = {}
-        self._q.put((emb, float(psi), int(seed), ev, box))
+        self._q.put((emb, float(psi), int(seed), time.perf_counter(), ev, box))
         return ev, box
+
+    def stats(self) -> dict:
+        """Dispatches and requests so far, and the median and 95th percentile of
+        the recent dispatches' call times and requests' queue waits, in ms."""
+        out = {"dispatches": self.dispatches, "requests": self.requests}
+        for name, recent in (("dispatch_ms", self.dispatch_ms),
+                             ("queue_wait_ms", self.queue_wait_ms)):
+            values = np.asarray(list(recent), np.float64)
+            for q in (50, 95):
+                out[f"{name}_p{q}"] = float(np.percentile(values, q)) if values.size else None
+        return out
 
     def close(self, timeout: float = 5.0) -> None:
         """Stop the dispatcher thread."""
@@ -190,13 +211,22 @@ class MicroBatcher:
                 return
 
     def _run(self, batch):
+        start = time.perf_counter()
+        waits = [start - item[3] for item in batch]
+        profiling.count("serve.requests", len(batch))
+        profiling.count("serve.queue_wait_s", sum(waits))
+        self.queue_wait_ms.extend(w * 1e3 for w in waits)
+        with profiling.span(DISPATCH_SPAN):
+            self._dispatch(batch)
+
+    def _dispatch(self, batch):
         R, k = len(batch), self.k
         latent = self.sampler.cfg.latent_dim
         S = self.slots if R > 1 else 1
         embs = np.zeros((S, self.emb_dim), np.float32)
         psis = np.ones((S,), np.float32)
         zs = np.zeros((S, k, latent), np.float32)
-        for i, (emb, psi, seed, _, _) in enumerate(batch):
+        for i, (emb, psi, seed, *_) in enumerate(batch):
             embs[i], psis[i], zs[i] = emb, psi, seeded_z(seed, k, latent)
         for i in range(R, S):
             embs[i], zs[i] = embs[0], zs[0]
@@ -208,7 +238,7 @@ class MicroBatcher:
         self.dispatch_ms.append((time.perf_counter() - t0) * 1e3)
         self.dispatches += 1
         self.requests += R
-        for i, (_, _, _, ev, box) in enumerate(batch):
+        for i, (*_, ev, box) in enumerate(batch):
             box["images"] = images[i * k:(i + 1) * k]
             box["routing"] = tuple(p[i * k:(i + 1) * k] for p in routing)
             ev.set()
@@ -413,7 +443,9 @@ def make_server(handler: InferenceHandler, *, metrics: Optional[dict] = None,
                     return self._send(404, {"status": "NOT_FOUND"})
                 return self._send(200, {"status": job["status"], "data": job["data"]})
             if url.path == "/metrics":
-                return self._send(200, model_metrics)
+                if handler.batcher is None:
+                    return self._send(200, model_metrics)
+                return self._send(200, {**model_metrics, "batcher": handler.batcher.stats()})
             if url.path == "/healthz":
                 return self._send(200, {"status": "ok"})
             return self._send(404, {"error": f"unknown path {url.path}"})

@@ -11,7 +11,8 @@ w = g / sqrt(sum v^2 + 1e-12) * v per output unit, with g initialised to
 ||v|| (no eps). `torch.nn.utils.weight_norm` has no eps, so it is not used.
 Parameter names follow the flax tree: conv_{i}, text_projection and
 output_conv, each with v, g and b; conv kernels v are OIHW here and HWIO
-there (`convert.py` permutes them).
+there (`convert.py` permutes them). A forward is the span `moegan.d`
+(`utils.profiling`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ from torch import nn
 
 from moegan_tpu_torch.config import DiscriminatorConfig
 from moegan_tpu_torch.core import inits
+from moegan_tpu_torch.utils.profiling import span
+
+SPAN = "moegan.d"
 
 
 class WNConv(nn.Module):
@@ -83,6 +87,10 @@ class AuroraDiscriminator(nn.Module):
 
     def forward(self, img: torch.Tensor, text_embedding: torch.Tensor) -> torch.Tensor:
         """img [B, R, R, 3] in [-1, 1]; text [B, text_dim] -> logits [B] (fp32)."""
+        with span(SPAN):
+            return self._forward(img, text_embedding)
+
+    def _forward(self, img: torch.Tensor, text_embedding: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         x = img.to(self.compute_dtype)
         for i in range(len(cfg.channel_plan())):

@@ -35,6 +35,13 @@ expert axis is larger than 1); after each backward the gradients are
 averaged over the data group, the balance and routing statistics are
 taken over the global batch, and the scalar metrics are averaged over the
 data group.
+
+Spans (`utils.profiling`, recorded under a profiler session): `moegan.step`
+around the call; `.d_phase` from the real input to D's gradients, holding
+`.r1` (the create-graph input gradient) and `.d_backward`; `.d_adamw`;
+`.g_phase`, the G forward, D on the fake, the losses and `.g_backward`;
+`.g_adamw`; `.metrics`. With `shared_fake` the one generator forward runs
+before `.d_phase`, in the root's own time.
 """
 
 from __future__ import annotations
@@ -63,6 +70,12 @@ from moegan_tpu_torch.parallel.sharding import (
 )
 from moegan_tpu_torch.train.schedules import warmup_cosine
 from moegan_tpu_torch.train.state import TrainState, clipped_adamw_update, sharded_mask
+from moegan_tpu_torch.utils.profiling import span
+
+# The step's spans (`utils.profiling`): the root, then its phases in order.
+SPAN = {"step": "moegan.step",
+        **{k: f"moegan.step.{k}" for k in ("d_phase", "r1", "d_backward", "d_adamw", "g_phase",
+                                             "g_backward", "g_adamw", "metrics")}}
 
 
 def draw_noise(generator_module: AuroraGenerator, batch_size: int,
@@ -135,6 +148,10 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
     shared = cfg.shared_fake
 
     def step(state: TrainState, batch, schedule, noise=None, generator=None, clip_params=None):
+        with span(SPAN["step"]):
+            return _step(state, batch, schedule, noise, generator, clip_params)
+
+    def _step(state, batch, schedule, noise, generator, clip_params):
         gen, disc, mesh = state.generator, state.discriminator, state.mesh
         dev = gen.constant.device
         real, text, local, B = _local_inputs(state, batch)
@@ -153,57 +170,67 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int | None = None):
         with maybe_mesh_context(mesh):
             # One differentiable generator forward, shared by both phases.
             out = g_forward() if shared else None
-            # D phase: real logits and their input gradient in one graph (R1).
-            real_in = real.detach().requires_grad_(True)
-            real_pred = disc(real_in, text)
-            (grad_real,) = torch.autograd.grad(real_pred.sum(), real_in, create_graph=True)
-            r1 = r1_from_input_grad(grad_real, lcfg.r1_gamma)
-            if shared:
-                fake = out.image.detach()
-            else:
-                with torch.no_grad():
-                    fake = gen(z, text, training=True, annealing_factor=temp,
-                               router_eps=noise["eps_d"]).image
-            fake_pred = disc(fake, text)
-            mism_pred = disc(real, mism_text)
-            d_gan = discriminator_loss(real_pred, fake_pred, mism_pred, lcfg.gan_loss)
-            d_total = d_gan + r1
-            d_grads = data_mean(torch.autograd.grad(d_total, d_params), mesh)
-            adamw(d_params, d_grads, state.d_opt, clip=cfg.grad_clip_d, mesh=mesh,
-                  sharded=d_mask)
+            with span(SPAN["d_phase"]):
+                # D phase: real logits and their input gradient in one graph (R1).
+                real_in = real.detach().requires_grad_(True)
+                real_pred = disc(real_in, text)
+                with span(SPAN["r1"]):
+                    (grad_real,) = torch.autograd.grad(real_pred.sum(), real_in,
+                                                       create_graph=True)
+                r1 = r1_from_input_grad(grad_real, lcfg.r1_gamma)
+                if shared:
+                    fake = out.image.detach()
+                else:
+                    with torch.no_grad():
+                        fake = gen(z, text, training=True, annealing_factor=temp,
+                                   router_eps=noise["eps_d"]).image
+                fake_pred = disc(fake, text)
+                mism_pred = disc(real, mism_text)
+                d_gan = discriminator_loss(real_pred, fake_pred, mism_pred, lcfg.gan_loss)
+                d_total = d_gan + r1
+                with span(SPAN["d_backward"]):
+                    d_grads = data_mean(torch.autograd.grad(d_total, d_params), mesh)
+            with span(SPAN["d_adamw"]):
+                adamw(d_params, d_grads, state.d_opt, clip=cfg.grad_clip_d, mesh=mesh,
+                      sharded=d_mask)
 
             # G phase, against the updated D.
-            if not shared:
-                out = g_forward()
-            kl = torch.clamp(out.kl, max=lcfg.kl_clamp)
-            g_gan = generator_loss(disc(out.image, text), lcfg.gan_loss)
-            clip_metrics = {}
-            g_clip = torch.zeros((), device=dev)
-            if clip_params is not None:
-                taps = {r: out.intermediates[r] for r, w in lcfg.clip_weights.items()
-                        if r in out.intermediates and w > 0}
-                for r, cl in multi_level_clip_loss(
-                        clip_params, taps, text,
-                        stop_gradient=lcfg.clip_stop_gradient).items():
-                    clip_metrics[f"clip_loss_{r}"] = cl
-                    g_clip = g_clip + lcfg.clip_weights[r] * cl
-            balance = moe_balance_loss(out.routing, lcfg.balance_weight,
-                                       all_blocks=lcfg.balance_all_blocks,
-                                       kind=lcfg.balance_kind, mesh=mesh)
-            g_total = g_gan + g_clip + balance + eff_kl_w * kl
-            # norm2 and the cross-attention's q/k weights feed nothing (one text
-            # token): their gradients are zero, as in the JAX package.
-            g_grads = data_mean(torch.autograd.grad(g_total, g_params, allow_unused=True,
-                                                    materialize_grads=True), mesh)
-            adamw(g_params, g_grads, state.g_opt, clip=cfg.grad_clip_g, mesh=mesh,
-                  sharded=g_mask)
+            with span(SPAN["g_phase"]):
+                if not shared:
+                    out = g_forward()
+                kl = torch.clamp(out.kl, max=lcfg.kl_clamp)
+                g_gan = generator_loss(disc(out.image, text), lcfg.gan_loss)
+                clip_metrics = {}
+                g_clip = torch.zeros((), device=dev)
+                if clip_params is not None:
+                    taps = {r: out.intermediates[r] for r, w in lcfg.clip_weights.items()
+                            if r in out.intermediates and w > 0}
+                    for r, cl in multi_level_clip_loss(
+                            clip_params, taps, text,
+                            stop_gradient=lcfg.clip_stop_gradient).items():
+                        clip_metrics[f"clip_loss_{r}"] = cl
+                        g_clip = g_clip + lcfg.clip_weights[r] * cl
+                balance = moe_balance_loss(out.routing, lcfg.balance_weight,
+                                           all_blocks=lcfg.balance_all_blocks,
+                                           kind=lcfg.balance_kind, mesh=mesh)
+                g_total = g_gan + g_clip + balance + eff_kl_w * kl
+                # norm2 and the cross-attention's q/k weights feed nothing (one text
+                # token): their gradients are zero, as in the JAX package.
+                with span(SPAN["g_backward"]):
+                    g_grads = data_mean(torch.autograd.grad(
+                        g_total, g_params, allow_unused=True, materialize_grads=True), mesh)
+            with span(SPAN["g_adamw"]):
+                adamw(g_params, g_grads, state.g_opt, clip=cfg.grad_clip_g, mesh=mesh,
+                      sharded=g_mask)
 
-        state.step += 1
-        metrics = dict(d_loss=d_gan, r1_loss=r1, d_total=d_total, g_total=g_total, g_loss=g_gan,
-                       kl_loss=kl, balance_loss=balance,
-                       expert_util=expert_utilization_per_block(out.routing, mesh),
-                       expert_top1=expert_top1_per_block(out.routing, mesh), **clip_metrics)
-        return state, _mean_metrics(metrics, mesh)
+        with span(SPAN["metrics"]):
+            state.step += 1
+            metrics = dict(d_loss=d_gan, r1_loss=r1, d_total=d_total, g_total=g_total,
+                           g_loss=g_gan, kl_loss=kl, balance_loss=balance,
+                           expert_util=expert_utilization_per_block(out.routing, mesh),
+                           expert_top1=expert_top1_per_block(out.routing, mesh),
+                           **clip_metrics)
+            return state, _mean_metrics(metrics, mesh)
 
     return step
 

@@ -124,8 +124,11 @@ def test_profiling_helpers(tmp_path, monkeypatch):
     assert mon.step(4) == fake and mon.peak == 97
     with profiling.trace(str(tmp_path / "trace")) as logdir:
         torch.ones(8, 8) @ torch.ones(8, 8)
-    files = os.listdir(logdir)
-    assert len(files) == 1 and json.load(open(os.path.join(logdir, files[0])))["traceEvents"]
+    pid = os.getpid()
+    assert sorted(os.listdir(logdir)) == [f"spans_{pid}.json", f"trace_{pid}.json"]
+    assert json.load(open(os.path.join(logdir, f"trace_{pid}.json")))["traceEvents"]
+    assert set(json.load(open(os.path.join(logdir, f"spans_{pid}.json")))) == {
+        "spans", "counters", "dropped"}
     was = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
     try:
         profiling.enable_debug_mode(nans=True)
