@@ -32,7 +32,11 @@ failure (non-zero exit, no result line):
    nine gradients of `FusedMoEFunction` against the autograd of
    `moe_ffn_reference`, the soft forward's out and probs, and the times,
    device times, bounds and GELU floors of the soft forward and the
-   backward), two calls bit-identical;
+   backward), two calls bit-identical; then the x2 upsample's kernels
+   (forward and backward) against their plain twins at every rung of the
+   aurora64 and flagship generators at batch 256, two calls bit-identical,
+   timed beside their byte bound, the plain twin (the fp32 `F.interpolate`
+   route) and PyTorch's own call on the bf16 tensor;
 4. the served slice: the default 64x64 generator built from a seed, written
    as `.npz` + `generator_config.json`, loaded by the port's
    `InferenceHandler` (with the random-init CLIP towers), served over HTTP on
@@ -46,7 +50,8 @@ failure (non-zero exit, no result line):
    `create_train_state` + `make_train_step`, 5 steps on a synthetic batch;
    losses and parameters finite, parameters changed, ms/step (CUDA events,
    median of steps 3-5) and images/s; each step's launches of the four
-   kernels are counted on their own and must be 6 / 3 / 10 / 5;
+   kernels are counted on their own and must be 6 / 3 / 10 / 5, and the
+   upsample's 8 / 4;
 7. one full-width step at batch 4 on the card (kernels, bf16) against the
    same weights, batch and noise on the CPU (plain versions, float32):
    losses and the cosine of each parameter group's gradient;
@@ -89,8 +94,8 @@ failure (non-zero exit, no result line):
    batches'; the CLIP loss timed alone at batch 32; the same run with
    `--no_clip_loss`; `--resume --epochs 3` against two uninterrupted 3-epoch
    runs (step and counts equal; parameters and AdamW's moments within 4x
-   the two uninterrupted runs' own difference: cuDNN's, grid_sample's and
-   the upsample's backward kernels add in no fixed order); ms/step (CUDA
+   the two uninterrupted runs' own difference: cuDNN's and grid_sample's
+   backward kernels add in no fixed order); ms/step (CUDA
    events, steps 3-6 of both 3-epoch runs); the directory served with a
    string prompt over HTTP (images
    64x64x3 and finite, the text embedding against the CPU's float32 tower,
@@ -149,12 +154,12 @@ failure (non-zero exit, no result line):
    defaults (64x64, batch 32, the CLIP loss) for 1 epoch on 128 train images:
    exactly 4 steps' and 31 validation batches' launches, ms/step; then the
    model directory published (`model_metrics.json`) and served: one
-   /generate of 4 images, GET /metrics returning the document; every stage
-   SUCCEEDED and both flags reset; (e) `train_toy_clip` on 1,024 shapes on
+   /generate of 4 images, GET /metrics returning the document and the
+   batcher's counters; every stage SUCCEEDED and both flags reset; (e) `train_toy_clip` on 1,024 shapes on
    the card for 200 steps, its loss falling, and `retrieval_accuracy`.
 15. the generator switches and the last modules: (a) `remat_blocks=True`: 5
-   default steps at batch 64 (launches 9 / 3 flash, 15 / 5 fused MoE: the G
-   phase's backward runs each block's forward again), ms/step and peak
+   default steps at batch 64 (launches 9 / 3 flash, 15 / 5 fused MoE, 12 / 4
+   upsample: the G phase's backward runs each block's forward again), ms/step and peak
    memory, and a batch-4 step's gradients against two runs without remat
    (within 4x their own difference); (b) `use_pallas=False`: a batch-16
    generator call against the CPU float32 one (phase 5's limit, pinned
@@ -703,6 +708,98 @@ def moe_bwd_phase(dev, tfm, shapes=TRAIN_MOE, tag="", batch=B_TRAIN, E=4):
     return rows
 
 
+# The upsample's inputs [B, r, r, C_in] into rungs 8-64 of each configuration.
+UPSAMPLE_SHAPES = {"aurora64": ((4, 512), (8, 256), (16, 128), (32, 64)),
+                   "flagship": ((4, 512), (8, 512), (16, 256), (32, 128))}
+B_UPSAMPLE = 256  # the benchmark's batch
+
+
+def ulp(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One unit in the last place of dtype (bf16 or float32) at |v|, in float32."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    return torch.exp2(torch.floor(torch.log2(v.float().abs().clamp_min(2.0 ** -100))) - bits)
+
+
+def upsample_phase(dev):
+    """Both upsample kernels against their plain twins at every rung of aurora64
+    and flagship at batch 256 in bf16, two calls bit-identical, and timed
+    beside their byte bound, the plain twin (the fp32 `F.interpolate` route the
+    port took before the kernels) and PyTorch's own call on the bf16 tensor
+    (`F.interpolate`, and `aten::upsample_bilinear2d_backward`). The forward
+    rows also time the input as the generator hands it to rungs 8-32: NHWC
+    over NCHW memory, which `core/upsample.py` makes contiguous before the
+    kernel (`strided_ms`) and on which the plain twin took PyTorch's NCHW
+    kernel (`strided_plain_ms`). Returns {configuration: (forward rows,
+    backward rows)}."""
+    import torch.nn.functional as F
+
+    from moegan_tpu_torch.core.upsample import upsample2x_bilinear
+    from moegan_tpu_torch.ops import upsample as tup
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for config, shapes in UPSAMPLE_SHAPES.items():
+        fwd_rows, bwd_rows = [], []
+        for r, C in shapes:
+            B = B_UPSAMPLE
+            x = torch.randn((B, r, r, C), generator=g, device=dev).to(torch.bfloat16)
+            dy = torch.randn((B, 2 * r, 2 * r, C), generator=g, device=dev).to(torch.bfloat16)
+            y, y2 = tup.upsample2x_fwd(x), tup.upsample2x_fwd(x)
+            dx, dx2 = tup.upsample2x_bwd(dy), tup.upsample2x_bwd(dy)
+            want_y, want_dx = tup.upsample2x_reference(x), tup.upsample2x_bwd_reference(dy)
+            bwd_terms = tup.upsample2x_bwd_reference(dy.float().abs())
+            torch.cuda.synchronize()
+            check(torch.equal(y, y2) and torch.equal(dx, dx2),
+                  f"upsample {config} r{2 * r}: two calls differ")
+            # One rounding of PyTorch's fp32 formula (products exact on bf16):
+            # within one ulp, nearly all equal. The backward's 16 terms in
+            # another order: one ulp plus 16 float32 roundings of their size.
+            fwd_err = (y.float() - want_y.float()).abs()
+            equal = (y == want_y).float().mean().item()
+            check(bool((fwd_err <= ulp(want_y, torch.bfloat16)).all()) and equal >= 0.99,
+                  f"upsample fwd {config} r{2 * r}: max |diff| {fwd_err.max().item()}, "
+                  f"{equal} equal")
+            bwd_err = (dx.float() - want_dx.float()).abs()
+            lim = ulp(want_dx, torch.bfloat16) + 2.0 ** -20 * bwd_terms
+            check(bool((bwd_err <= lim).all()),
+                  f"upsample bwd {config} r{2 * r}: max |diff| {bwd_err.max().item()}")
+            del y2, dx2, bwd_terms, lim
+            xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            nbytes = 10.0 * x.numel()  # bf16: x (or dx) once, y (or dy) once
+            for name, rows, fn, plain, lib, flops, err, want in (
+                ("fwd", fwd_rows, lambda: tup.upsample2x_fwd(x),
+                 lambda: tup.upsample2x_reference(x),
+                 lambda: F.interpolate(xn, scale_factor=2, mode="bilinear",
+                                       align_corners=False),
+                 7.0 * y.numel(), fwd_err, want_y),  # four taps an output
+                ("bwd", bwd_rows, lambda: tup.upsample2x_bwd(dy),
+                 lambda: tup.upsample2x_bwd_reference(dy),
+                 lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                     dyn, [2 * r, 2 * r], [B, C, r, r], False, 2.0, 2.0),
+                 31.0 * x.numel(), bwd_err, want_dx),  # sixteen taps an input
+            ):
+                b_ms, b_by = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+                rows.append(dict(
+                    config=config, res=2 * r, B=B, C_in=C, max_abs_err=err.max().item(),
+                    max_abs_ref=want.float().abs().max().item(),
+                    equal_share=equal if name == "fwd" else None,
+                    ms=time_ms(fn, 20), device_ms=graph_ms(fn, 20),
+                    plain_ms=time_ms(plain, 3), library_ms=time_ms(lib, 5),
+                    flops=flops, bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
+                rows[-1]["roofline_pct"] = 100 * b_ms / rows[-1]["device_ms"]
+                if name == "fwd":
+                    xs = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+                    rows[-1].update(strided_ms=time_ms(lambda: upsample2x_bilinear(xs), 20),
+                                    strided_plain_ms=time_ms(
+                                        lambda: tup.upsample2x_reference(xs), 3))
+                    del xs
+                print(f"upsample_{name} {config} " + json.dumps(rows[-1]), flush=True)
+            del x, dy, y, dx, want_y, want_dx, fwd_err, bwd_err, xn, dyn
+            torch.cuda.empty_cache()
+        out[config] = (fwd_rows, bwd_rows)
+    return out
+
+
 # --- phase 4: the served slice ------------------------------------------------------------
 
 
@@ -918,9 +1015,12 @@ def generator_phase(cfg, state_dict, n=4, label="generator_vs_cpu", same_precisi
 
 # The opt-in kernels (phase 10) are launched by no default path.
 OPT_IN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "moe_bwd_dx", "moe_bwd_dw2", "moe_bwd_dw1")
+# The upsample: one a rung r8-r64 in each of the step's two generator forwards
+# (the D phase's no-grad fake too), one backward a rung.
 EXPECTED_STEP_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd": 3,
                           "fused_moe_fwd": 10, "fused_moe_bwd": 5,
                           "moe_combine_fwd": 0, "moe_combine_bwd": 0,
+                          "upsample_fwd": 8, "upsample_bwd": 4,
                           **dict.fromkeys(OPT_IN_KERNELS, 0)}
 
 
@@ -929,6 +1029,7 @@ def counters():
     from moegan_tpu_torch.ops import flash_attention as tfa
     from moegan_tpu_torch.ops import fused_moe as tfm
     from moegan_tpu_torch.ops import layernorm as tln
+    from moegan_tpu_torch.ops import upsample as tup
 
     return {"flash_attention_fwd": tfa.flash_attention,
             "flash_attention_bwd": tfa.flash_attention_bwd,
@@ -936,7 +1037,8 @@ def counters():
             "moe_combine_fwd": tfm.moe_ffn_combine, "moe_combine_bwd": tfm.moe_ffn_combine_bwd,
             "layer_norm_fwd": tln.layer_norm_fwd, "layer_norm_bwd": tln.layer_norm_bwd,
             "moe_bwd_dx": tfm.moe_bwd_dx, "moe_bwd_dw2": tfm.moe_bwd_dw2,
-            "moe_bwd_dw1": tfm.moe_bwd_dw1}
+            "moe_bwd_dw1": tfm.moe_bwd_dw1,
+            "upsample_fwd": tup.upsample2x_fwd, "upsample_bwd": tup.upsample2x_bwd}
 
 
 def launch_counts():
@@ -1233,10 +1335,12 @@ DIST_RANKS = 2  # data 1 x expert 2
 DIST_STEP_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd": 3,
                       "fused_moe_fwd": 0, "fused_moe_bwd": 0,
                       "moe_combine_fwd": 10, "moe_combine_bwd": 5,
+                      "upsample_fwd": 8, "upsample_bwd": 4,
                       **dict.fromkeys(OPT_IN_KERNELS, 0)}
 DIST_EVAL_LAUNCHES = {"flash_attention_fwd": 3, "flash_attention_bwd": 0,
                       "fused_moe_fwd": 0, "fused_moe_bwd": 0,
                       "moe_combine_fwd": 5, "moe_combine_bwd": 0,
+                      "upsample_fwd": 4, "upsample_bwd": 0,
                       **dict.fromkeys(OPT_IN_KERNELS, 0)}
 DIST_TIMEOUT_S = 600
 
@@ -1505,6 +1609,7 @@ OPT_IN_FLAGS = {"MOEGAN_FUSED_LN": "1", "MOEGAN_PALLAS_MOE_BWD": "3"}
 OPT_IN_STEP_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd": 3,
                         "fused_moe_fwd": 10, "fused_moe_bwd": 0,
                         "moe_combine_fwd": 0, "moe_combine_bwd": 0,
+                        "upsample_fwd": 8, "upsample_bwd": 4,
                         # norm1 and norm3 of 5 blocks in 2 generator forwards; the
                         # G phase's backward; one legacy backward per MoE block
                         "layer_norm_fwd": 20, "layer_norm_bwd": 10,
@@ -1768,7 +1873,7 @@ CLI_BATCH = 32
 # validation set 32 (one batch an epoch).
 CLI_STEPS_PER_EPOCH = 2
 # A validation batch's launches: the eval generator's forwards (hard routing).
-EXPECTED_EVAL_LAUNCHES = {"flash_attention_fwd": 3, "fused_moe_fwd": 5}
+EXPECTED_EVAL_LAUNCHES = {"flash_attention_fwd": 3, "fused_moe_fwd": 5, "upsample_fwd": 4}
 PROMPT = "a red circle on a dark background"
 
 
@@ -1924,11 +2029,11 @@ def cli_phase(smi):
             whole.append(cli_run(base + ["--epochs", "3", "--save_dir", d]))
         diff = compare_states(resumed, whole[0][0])
         spread = compare_states(whole[1][0], whole[0][0])
-        # cuDNN's, grid_sample's and the bilinear upsample's backward kernels add
-        # in no fixed order, so two runs from the same seed differ by rounding,
-        # which the adversarial steps grow (the CPU test holds resume bit for
-        # bit). The resumed run must be as close to the uninterrupted one as a
-        # second uninterrupted run is: each difference within 4x that spread,
+        # cuDNN's and grid_sample's backward kernels add in no fixed order, so
+        # two runs from the same seed differ by rounding, which the adversarial
+        # steps grow (the CPU test holds resume bit for bit). The resumed run
+        # must be as close to the uninterrupted one as a second uninterrupted
+        # run is: each difference within 4x that spread,
         # step and counts equal. A resume that drew other noise or data would
         # put AdamW's first moment off by the last steps' whole share (~50 %).
         print(f"resume: resumed against uninterrupted 3-epoch run: {json.dumps(diff)}; two "
@@ -2052,8 +2157,10 @@ FLAGSHIP_ATTN = ((16, 8, 32), (32, 8, 16), (64, 2, 32))
 FLAGSHIP_MOE = ((4, 512), (8, 512), (16, 256), (32, 128), (64, 64))
 # shared_fake: one differentiable generator forward a step (its flash forwards
 # keep lse for the backward) and its backward; no D-phase generator forward.
-SHARED_STEP_LAUNCHES = {**EXPECTED_STEP_LAUNCHES, "flash_attention_fwd": 3, "fused_moe_fwd": 5}
-DIST_SHARED_LAUNCHES = {**DIST_STEP_LAUNCHES, "flash_attention_fwd": 3, "moe_combine_fwd": 5}
+SHARED_STEP_LAUNCHES = {**EXPECTED_STEP_LAUNCHES, "flash_attention_fwd": 3, "fused_moe_fwd": 5,
+                        "upsample_fwd": 4}
+DIST_SHARED_LAUNCHES = {**DIST_STEP_LAUNCHES, "flash_attention_fwd": 3, "moe_combine_fwd": 5,
+                        "upsample_fwd": 4}
 # Generator tensors carried into stages 32 and 64 of the default 16 -> 32 -> 64
 # ladder; tests/test_torch_progressive.py pins the same counts against the JAX package.
 PROGRESSIVE_TRANSFERS = {32: 192, 64: 245}
@@ -2182,10 +2289,13 @@ def progressive_phase(smi):
     for r, _ in stages:
         n_attn = sum(1 for x in (16, 32, 64) if x <= r)  # flash at T >= 256
         n_moe = int(math.log2(r // 4)) + 1  # one MoE per block from 4x4
+        n_up = n_moe - 1  # one upsample per block above 4x4
         want["flash_attention_fwd"] += steps_per_stage * 2 * n_attn + n_attn
         want["flash_attention_bwd"] += steps_per_stage * n_attn
         want["fused_moe_fwd"] += steps_per_stage * 2 * n_moe + n_moe
         want["fused_moe_bwd"] += steps_per_stage * n_moe
+        want["upsample_fwd"] += steps_per_stage * 2 * n_up + n_up
+        want["upsample_bwd"] += steps_per_stage * n_up
     check(launches == want, f"progressive: launches {launches}, want {want}")
     transfers = [line for line in log.lines if line.startswith("transferred ")]
     want_lines = [f"transferred {PROGRESSIVE_TRANSFERS[r]} generator tensors from the previous "
@@ -2240,7 +2350,7 @@ def one_expert_phase(dev, tfm):
                             same_precision=True)
     launches = launch_counts()
     want = {**dict.fromkeys(EXPECTED_STEP_LAUNCHES, 0), "flash_attention_fwd": 3,
-            "fused_moe_fwd": 5}
+            "fused_moe_fwd": 5, "upsample_fwd": 4}
     check(launches == want, f"one-expert generator: launches {launches}, want {want}")
     return launches, rows, bwd_rows, stats
 
@@ -2321,9 +2431,10 @@ def flagship_extras(p12) -> dict:
 
 EVAL_BATCH = 64  # cli.evaluate's default batch
 # One eval generator call (hard routing): a flash forward per attention block
-# at T >= 256 and a fused MoE forward per block, nothing else.
+# at T >= 256, a fused MoE forward per block and an upsample forward per block
+# above 4x4, nothing else.
 EVAL_CALL_LAUNCHES = {**dict.fromkeys(EXPECTED_STEP_LAUNCHES, 0), "flash_attention_fwd": 3,
-                      "fused_moe_fwd": 5}
+                      "fused_moe_fwd": 5, "upsample_fwd": 4}
 # Inception on the card (bf16 products of 94 convs) against the CPU's float32:
 # each rounding is 2^-9 relative, a few dozen in sequence, so each image's
 # 2048 features keep their direction to well within a percent.
@@ -2669,7 +2780,8 @@ AUG_TOL = 1e-4
 TOY_SAMPLES, TOY_STEPS = 1024, 200
 # The rows a trial or the job launches: flash forward and backward, the fused
 # MoE forward (rows 3-4) and backward (row 5).
-CHAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_moe_fwd", "fused_moe_bwd")
+CHAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_moe_fwd", "fused_moe_bwd",
+                 "upsample_fwd", "upsample_bwd")
 # The keys of the JAX package's describe_best, trial_timeline and
 # publish_model_metrics.
 BEST_KEYS = {"BestTrainingJob", "FinalHyperParameters", "FinalObjectiveValue"}
@@ -2895,7 +3007,8 @@ def training_stage(ctx):
 
 def deployment_stage(ctx):
     """(c) the job's model directory published and served: model_metrics.json,
-    one /generate of 4 64x64 images, GET /metrics returning the document."""
+    one /generate of 4 64x64 images, GET /metrics returning the document and
+    the batcher's counters."""
     from moegan_tpu_torch.infer.png import decode_png
     from moegan_tpu_torch.infer.serving import InferenceHandler, make_server
     from moegan_tpu_torch.orchestration.pipeline import publish_model_metrics
@@ -2930,7 +3043,11 @@ def deployment_stage(ctx):
     check(len(imgs) == 4 and all(im.shape == (64, 64, 3) for im in imgs), "deploy: images")
     check(tuple(images.shape) == (4, 64, 64, 3) and bool(torch.isfinite(images).all()),
           "deploy: the served generator's images")
-    check(served == json.loads(json.dumps(doc)), f"deploy: /metrics {served}")
+    # GET /metrics serves the published document and the batcher's counters
+    # beside it (`batcher`, one dispatch for the one request).
+    batcher = served.pop("batcher", {})
+    check(served == json.loads(json.dumps(doc)) and batcher.get("requests") == 1,
+          f"deploy: /metrics {served}, batcher {batcher}")
     row = {"load_s": load_s, "latency_ms": latency, "metrics": served["metrics"]}
     print("deploy " + json.dumps(row), flush=True)
     return {"deployment": row}
@@ -2998,8 +3115,10 @@ def mlops_phase(smi):
 # --- phase 15: the generator switches, the native gather, profiling, DCGAN, prototype --------
 
 # remat_blocks: the G phase's backward runs each block's forward again, so its
-# flash forward (with lse, 3) and fused MoE soft forward (5) launch twice.
-REMAT_STEP_LAUNCHES = {**EXPECTED_STEP_LAUNCHES, "flash_attention_fwd": 9, "fused_moe_fwd": 15}
+# flash forward (with lse, 3), fused MoE soft forward (5) and upsample
+# forward (4) launch twice.
+REMAT_STEP_LAUNCHES = {**EXPECTED_STEP_LAUNCHES, "flash_attention_fwd": 9, "fused_moe_fwd": 15,
+                       "upsample_fwd": 12}
 # use_pallas=False: no kernel anywhere.
 DENSE_LAUNCHES = dict.fromkeys(EXPECTED_STEP_LAUNCHES, 0)
 GATHER_SPLIT = 1048  # phase 14's processed train split, 64x64 NHWC float32
@@ -3124,11 +3243,14 @@ def profiling_phase(smi):
             for _ in range(2):
                 state, _ = step(state, batch, epoch0_schedule(cfg), generator=noise)
         traced_s = time.perf_counter() - t0
-        files = glob.glob(os.path.join(logdir, "*.json"))
-        check(len(files) == 1, f"trace wrote {files}")
-        with open(files[0]) as f:
+        # the Chrome trace and the spans' summary (utils/profiling.py::trace)
+        pid = os.getpid()
+        files = sorted(os.listdir(logdir))
+        check(files == [f"spans_{pid}.json", f"trace_{pid}.json"], f"trace wrote {files}")
+        trace_path = os.path.join(logdir, f"trace_{pid}.json")
+        with open(trace_path) as f:
             events = json.load(f)["traceEvents"]
-        trace_mb = os.path.getsize(files[0]) / 1e6
+        trace_mb = os.path.getsize(trace_path) / 1e6
     finally:
         shutil.rmtree(logdir, ignore_errors=True)
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -3312,6 +3434,7 @@ def main() -> None:
     moe_ties_phase(dev, tfm)
     flash_bwd_rows = flash_bwd_phase(dev, tfa)
     moe_bwd_rows = moe_bwd_phase(dev, tfm)
+    upsample_rows = upsample_phase(dev)
 
     model_dir = tempfile.mkdtemp(prefix="moegan_smoke_model_")
     try:
@@ -3370,6 +3493,12 @@ def main() -> None:
             "train_fwd_set_device_ms": total(moe_bwd_rows, "fwd_device_ms"),
         },
         "fused_moe_bwd": {"device_ms": total(moe_bwd_rows, "device_ms")},
+        # the flagship's four rungs beside aurora64's (the rows)
+        **{f"upsample_{name}": {
+            "device_ms": total(upsample_rows["aurora64"][i], "device_ms"),
+            **{f"flagship_{key}": total(upsample_rows["flagship"][i], key)
+               for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}}
+           for i, name in enumerate(("fwd", "bwd"))},
         # the legacy entry points with the forward's routing, as FusedMoEFunction
         # launches them under =3
         **{name: {"device_ms": total(rows, "device_ms")} for name, rows in legacy_rows.items()},
@@ -3379,6 +3508,8 @@ def main() -> None:
                                                      "library_cold_device_ms")}
            for name, rows in (("layer_norm_fwd", ln_fwd_rows), ("layer_norm_bwd", ln_bwd_rows))},
     }
+    for key in ("strided_ms", "strided_plain_ms"):  # the inputs as the generator hands them
+        extra["upsample_fwd"][key] = total(upsample_rows["aurora64"][0], key)
     for name, more in flagship_extras(p12).items():
         extra.setdefault(name, {}).update(more)
     for name, more in evaluation_extras(p13).items():
@@ -3394,6 +3525,12 @@ def main() -> None:
          "moegan_tpu/ops/flash_attention.py:521", True, "training, batch 64"),
         ("fused_moe_bwd", moe_bwd_rows, "moegan_tpu_torch/ops/csrc/fused_moe_bwd.cu",
          "moegan_tpu/ops/fused_moe.py:774", False, "training, batch 64"),
+        ("upsample_fwd", upsample_rows["aurora64"][0], "moegan_tpu_torch/ops/csrc/upsample.cu",
+         "none (the JAX package's jax.image.resize); added for the port's F.interpolate",
+         True, "training and generation, batch 256, aurora64's four rungs"),
+        ("upsample_bwd", upsample_rows["aurora64"][1], "moegan_tpu_torch/ops/csrc/upsample.cu",
+         "none (the JAX package's jax.image.resize); added for the port's F.interpolate",
+         True, "training, batch 256, aurora64's four rungs"),
         ("moe_combine_fwd", [r for r in combine_fwd_rows if r["E_local"] == 2],
          "moegan_tpu_torch/ops/csrc/fused_moe.cu",
          "moegan_tpu/ops/fused_moe.py:1046; moegan_tpu/ops/fused_moe.py:1224", False,
@@ -3421,7 +3558,8 @@ def main() -> None:
          "moegan_tpu/ops/fused_moe.py:310", False,
          "training, batch 64, MOEGAN_PALLAS_MOE_BWD=3"),
     ):
-        peak = PEAK_FP32_FLOPS if name.startswith("layer_norm") else PEAK_BF16_FLOPS
+        fp32 = name.startswith(("layer_norm", "upsample"))
+        peak = PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS
         ops_ms = sum(r["flops"] for r in rows) / peak * 1e3
         bytes_ms = sum(r["bytes"] for r in rows) / PEAK_BYTES * 1e3
         kernels.append({

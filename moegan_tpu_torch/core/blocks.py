@@ -2,7 +2,8 @@
 
 ConvolutionBlock = two MTMs plus a skip (1x1 modulated conv when the channel
 count changes). GenerativeBlock = optional x2 bilinear upsample ->
-ConvolutionBlock -> AttentionBlock. A generative block's spans
+ConvolutionBlock -> AttentionBlock; with `use_pallas=False` the upsample is
+the plain version, as every other part of the block. A generative block's spans
 (`utils.profiling`) are `<span_name>.upsample` and `<span_name>.conv`, then the
 attention block's, under the generator's `moegan.g.r{r}`.
 """
@@ -17,6 +18,7 @@ from moegan_tpu_torch.core.attention import AttentionBlock
 from moegan_tpu_torch.core.modconv import ModulatedConv
 from moegan_tpu_torch.core.mtm import ModulatedTransformationModule
 from moegan_tpu_torch.core.upsample import upsample2x_bilinear
+from moegan_tpu_torch.ops.upsample import upsample2x_reference
 from moegan_tpu_torch.utils.profiling import span
 
 
@@ -51,6 +53,7 @@ class GenerativeBlock(nn.Module):
         super().__init__()
         gen = inits.default_generator(gen)
         self.upsample = upsample
+        self.use_pallas = use_pallas
         self._span = {"upsample": f"{span_name}.upsample", "conv": f"{span_name}.conv"}
         self.conv_block = ConvolutionBlock(
             in_channels, out_channels, use_offset, latent_dim, compute_dtype, gen)
@@ -64,7 +67,7 @@ class GenerativeBlock(nn.Module):
         """Returns (x [B, H, W, C], router KL, routing probs [B, T, E])."""
         if self.upsample:
             with span(self._span["upsample"]):
-                x = upsample2x_bilinear(x)
+                x = upsample2x_bilinear(x) if self.use_pallas else upsample2x_reference(x)
         with span(self._span["conv"]):
             x = self.conv_block(x, w)
         return self.attn_block(x, w, text_seq, training, annealing_factor, eps)

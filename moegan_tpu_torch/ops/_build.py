@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = (
     "flash_attention.cu", "flash_attention_bwd.cu", "fused_moe.cu", "fused_moe_bwd.cu",
-    "fused_moe_legacy.cu", "layer_norm.cu",
+    "fused_moe_legacy.cu", "layer_norm.cu", "upsample.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -14,6 +14,7 @@ import torch
 from moegan_tpu_torch.ops import flash_attention as tfa
 from moegan_tpu_torch.ops import fused_moe as tfm
 from moegan_tpu_torch.ops import layernorm as tln
+from moegan_tpu_torch.ops import upsample as tup
 from torch_helpers import MOE_ORDER, moe_inputs, t  # tests/ is on sys.path under pytest
 
 
@@ -264,6 +265,81 @@ def test_layer_norm_bwd_is_deterministic_at_res64(cuda_device):
     for name, a, c in zip(("dscale", "dbias"), runs[0][1:], want[1:]):
         # fp32 sums over N rows in other orders
         torch.testing.assert_close(a, c, rtol=0, atol=1e-3 * c.abs().max().item(), msg=name)
+
+
+def ulp(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One unit in the last place of dtype (bf16 or float32) at |v|, in float32."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    return torch.exp2(torch.floor(torch.log2(v.float().abs().clamp_min(2.0 ** -100))) - bits)
+
+
+# The generator's rungs at batch 4 (aurora64's four inputs, flagship's r16
+# input 8x8x512), a ragged C with odd H != W (single elements), and x one
+# element past a 16-byte boundary (single elements).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,W,C,offset", [(4, 4, 512, 0), (8, 8, 256, 0), (16, 16, 128, 0),
+                                          (32, 32, 64, 0), (8, 8, 512, 0), (5, 7, 20, 0),
+                                          (8, 8, 256, 1)])
+def test_upsample_kernels_match_plain_on_card(cuda_device, H, W, C, offset, dtype):
+    B = 4
+    g = torch.Generator(device=cuda_device).manual_seed(H * W + C + offset)
+    n = B * H * W * C
+    x = torch.empty(n + offset, dtype=dtype, device=cuda_device)[offset:].view(B, H, W, C)
+    x.copy_(torch.randn((B, H, W, C), generator=g, device=cuda_device) * 2 + 0.5)
+    dy = torch.randn((B, 2 * H, 2 * W, C), generator=g, device=cuda_device).to(dtype)
+    if offset:
+        assert x.data_ptr() % 16 == x.element_size()
+    fwd0, bwd0 = tup.upsample2x_fwd.launches, tup.upsample2x_bwd.launches
+    leaf = x.detach().requires_grad_(True)
+    y = tup.Upsample2xFunction.apply(leaf)
+    (dx,) = torch.autograd.grad(y, leaf, dy)
+    again = tup.upsample2x_bwd(dy)
+    assert (tup.upsample2x_fwd.launches - fwd0, tup.upsample2x_bwd.launches - bwd0) == (1, 2)
+    with torch.enable_grad():
+        ref_leaf = x.detach().requires_grad_(True)
+        want_y = tup.upsample2x_reference(ref_leaf)  # F.interpolate on the card
+        (want_dx,) = torch.autograd.grad(want_y, ref_leaf, dy)
+    # The terms' magnitudes, which bound the float32 roundings of a sum of them.
+    fwd_terms = tup.upsample2x_reference(x.float().abs())
+    bwd_terms = tup.upsample2x_bwd_reference(dy.float().abs())
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == dtype and y.shape == (B, 2 * H, 2 * W, C)
+    assert torch.equal(dx, again), "two backward calls differ"
+    # Forward: PyTorch's fp32 formula in its order (4 terms), rounded once;
+    # FMA contraction may round the terms' sums apart by 4 float32 roundings
+    # of their magnitude (2^-22), and the result's rounding then by one ulp.
+    err = (y.float() - want_y.float()).abs()
+    lim = ulp(want_y, dtype) + 2.0 ** -22 * fwd_terms
+    assert (err <= lim).all(), f"forward: max |diff| {err.max().item()}"
+    if dtype == torch.bfloat16:  # the products are exact on bf16 inputs
+        equal = (y == want_y).float().mean().item()
+        assert equal >= 0.99, f"forward: only {equal:.4f} of the elements equal"
+    # Backward: PyTorch adds its terms with atomics in fp32, the kernel in a
+    # fixed order; at most 16 terms, so within 16 float32 roundings of their
+    # magnitude (2^-20), plus one ulp of the result's rounding.
+    err = (dx.float() - want_dx.float()).abs()
+    lim = ulp(want_dx, dtype) + 2.0 ** -20 * bwd_terms
+    assert (err <= lim).all(), f"backward: max |diff| {err.max().item()}"
+
+
+@pytest.mark.cuda
+def test_upsample_dispatch_takes_the_generators_layout_on_card(cuda_device):
+    """`core/upsample.py` on an NHWC view of NCHW memory, as rungs 8-32 of the
+    generator hand it over: the kernels on the contiguous copy, with grad."""
+    from moegan_tpu_torch.core.upsample import upsample2x_bilinear
+
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn((4, 256, 8, 8), generator=g, device=cuda_device).to(torch.bfloat16)
+    x = x.permute(0, 2, 3, 1).requires_grad_(True)
+    dy = torch.randn((4, 16, 16, 256), generator=g, device=cuda_device).to(torch.bfloat16)
+    assert not x.is_contiguous()
+    fwd0, bwd0 = tup.upsample2x_fwd.launches, tup.upsample2x_bwd.launches
+    y = upsample2x_bilinear(x)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    assert (tup.upsample2x_fwd.launches - fwd0, tup.upsample2x_bwd.launches - bwd0) == (1, 1)
+    assert torch.equal(y, tup.upsample2x_fwd(x.detach().contiguous()))
+    assert torch.equal(dx, tup.upsample2x_bwd(dy))
 
 
 # Every padded width (C = 32-512 and C = 48, padded to 64, and C = 16,

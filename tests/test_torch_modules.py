@@ -34,6 +34,9 @@ from moegan_tpu_torch.core.mtm import ModulatedTransformationModule
 from moegan_tpu_torch.core.router import BayesianRouter
 from moegan_tpu_torch.core.upsample import upsample2x_bilinear
 from moegan_tpu_torch.models.generator import AuroraGenerator
+from moegan_tpu_torch.core import blocks as torch_blocks
+from moegan_tpu_torch.core import upsample as torch_upsample
+from moegan_tpu_torch.ops import upsample as tup
 from moegan_tpu_torch.ops.layernorm import LayerNorm
 from tests.torch_helpers import TINY_KW, decisive_router, jax_variables, randn, t
 
@@ -76,6 +79,68 @@ def test_upsample_matches_jax(dtype):
     assert got.dtype == dtype
     # bf16: both compute in fp32 and round once, so equal to the rounding.
     _close(got, want.astype(F32), rtol=0, atol=1e-6 if dtype == torch.float32 else 1e-2)
+
+
+def _kernel_route_raises(monkeypatch, dispatcher_too: bool):
+    """Make every entry into the upsample kernels raise (and with
+    `dispatcher_too` the blocks' dispatcher, which routes to them on a card)."""
+    def refuse(*_args, **_kw):
+        raise AssertionError("the upsample kernel route was taken")
+
+    monkeypatch.setattr(tup.Upsample2xFunction, "apply", refuse)
+    monkeypatch.setattr(tup, "upsample2x_fwd", refuse)
+    monkeypatch.setattr(tup, "upsample2x_bwd", refuse)
+    if dispatcher_too:
+        monkeypatch.setattr(torch_blocks, "upsample2x_bilinear", refuse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_dispatches_cpu_tensor_to_plain(monkeypatch, dtype):
+    _kernel_route_raises(monkeypatch, dispatcher_too=False)
+    x = t(randn(61, 2, 5, 7, 20)).to(dtype).requires_grad_(True)
+    got = torch_upsample.upsample2x_bilinear(x)
+    want = tup.upsample2x_reference(x)
+    assert got.dtype == dtype and got.shape == (2, 10, 14, 20)
+    assert torch.equal(got, want)
+    dy = t(randn(62, 2, 10, 14, 20)).to(dtype)
+    (dx,) = torch.autograd.grad(got, x, dy)
+    assert torch.equal(dx, tup.upsample2x_bwd_reference(dy))
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (1, 1, 4, 2), (3, 4, 4, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_plain_bwd_matches_jax_vjp(shape, dtype):
+    B, H, W, C = shape
+    dy = t(randn(64, B, 2 * H, 2 * W, C)).to(dtype)
+    # JAX in float32 on the same (bf16-representable) cotangent: its bf16
+    # vjp rounds between the two axes' contractions, the plain version sums
+    # both axes in float32 and rounds once.
+    _, vjp = jax.vjp(jax_upsample, jnp.asarray(randn(63, *shape)))
+    (want,) = vjp(jnp.asarray(dy.float().numpy()))
+    got = tup.upsample2x_bwd_reference(dy)
+    assert got.dtype == dtype and got.shape == shape
+    # At most 16 products of 0.25/0.75 weights, exact on bf16 values, summed
+    # in float32 in two orders: float32 roundings, and at bf16 the one
+    # rounding of the result (half an ulp: at most 2^-8 relative).
+    rtol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    _close(got, want, rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_generative_block_use_pallas_false_never_touches_kernel(monkeypatch, use_pallas):
+    _kernel_route_raises(monkeypatch, dispatcher_too=True)
+    m = GenerativeBlock(12, 8, text_dim=20, latent_dim=20, upsample=True, heads=1,
+                        num_experts=2, router_hidden=8, compute_dtype=torch.float32,
+                        gen=_gen(9), use_pallas=use_pallas)
+    x = t(randn(65, 2, 4, 4, 12)).requires_grad_(True)
+    w, ts = t(randn(66, 2, 20)), t(randn(67, 2, 1, 20))
+    if use_pallas:  # the control: the same block with the kernels meets the patch
+        with pytest.raises(AssertionError, match="kernel route"):
+            m(x, w, ts)
+        return
+    out, _, _ = m(x, w, ts)
+    out.sum().backward()
+    assert out.shape == (2, 8, 8, 8) and x.grad is not None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
